@@ -1,0 +1,228 @@
+"""Where the port's fused forwarder sweep spends its time, on one GPU.
+
+Runs the main path of ``chip_smoke.py`` (the forwarder grid of
+``benchmarks/jax_sweep.py``: 72 configs x ``--seeds`` seeds per
+policy, all five policies, 2,000 packets per lane) twice:
+
+1. phase by phase, with a device synchronisation after each phase
+   and the host clock around it: per-lane draws and queue views
+   (``_lane_setup``), the claim scan, the post-scan scatter and
+   outputs, and the one done-prefix launch;
+2. a window of claim steps of every segment under ``torch.profiler``
+   (CPU + CUDA activities): device busy time (sum of kernel self
+   times), its share of the window's wall clock, kernels and outermost
+   ``aten`` operator calls per step, and the top kernels by device
+   time.
+
+Usage (on a host with a CUDA device)::
+
+    PYTHONPATH=src python3 tools/torch_sweep_profile.py --out prof.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.core import SweepRequest, lane_grid, run_sweep  # noqa: E402
+from repro_torch.core import torchplane as tp  # noqa: E402
+from repro_torch.core.policy import _fused_requests  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+AXES = {
+    "batch": [1, 2, 4, 8, 16, 32],
+    "rate": [20.0, 30.0, 40.0, 50.0],
+    "deschedule_prob": [0.0, 5e-4, 5e-3],
+}
+N, W, MB, CHUNK = 2000, 4, 64, 64
+
+
+def _grid(n_seeds):
+    arrays, _ = lane_grid(AXES, np.arange(n_seeds))
+    seeds = arrays.pop("__seeds__")
+    lane = {k: arrays[k] for k in ("batch", "deschedule_prob")}
+    return seeds, lane, {"rate": arrays["rate"]}
+
+
+def phases(dev, n_seeds) -> dict:
+    """Host-clock seconds of each phase, device synchronised between."""
+    seeds, lane, traffic = _grid(n_seeds)
+    reqs = _fused_requests(seeds, lane_params=lane, traffic_params=traffic)
+    out = dict(setup_s=0.0, scan_s=0.0, scatter_s=0.0, outputs_s=0.0, steps=0)
+
+    def tick():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    segs = []
+    for req in reqs:
+        pol = tp._resolve_policy(req["policy"])
+        lanes = len(seeds)
+        params = tp._lane_tensors(
+            tp.default_lane_params(**req["lane_params"]), tp.LaneParams, lanes, dev
+        )
+        t0 = tick()
+        su = tp._lane_setup(
+            pol,
+            "udp",
+            "fwd",
+            N,
+            256,
+            W,
+            N + (-N % CHUNK),
+            tp._lane_tensors(
+                tp.default_traffic_params(**traffic), tp.TrafficParams, lanes, dev
+            ),
+            tp._lane_tensors(tp.default_fault_params(), tp.FaultParams, lanes, dev),
+            seeds,
+        )
+        t1 = tick()
+        st = tp._init_state(lanes, W, dev)
+        u_t, stall_t = su.u.t().contiguous(), su.stalls.t().contiguous()
+        recs = []
+        steps = 0
+        for c0 in range(0, su.u.shape[1], CHUNK):
+            if bool((st.halted | (st.items >= N)).all()):
+                break
+            for s in range(c0, c0 + CHUNK):
+                recs.append(tp._claim_step(pol, MB, params, su, st, u_t[s], stall_t[s]))
+                steps += 1
+        t2 = tick()
+        rec = tp.ClaimRecord(*(torch.stack(x, dim=1) for x in zip(*recs)))
+        done, claimed = tp._scatter_claims(rec, su.qid, su.rank, su.cumsvc)
+        t3 = tick()
+        segs.append(tp._segment_outputs(st, done, claimed, su.arr, N, False))
+        t4 = tick()
+        out["setup_s"] += t1 - t0
+        out["scan_s"] += t2 - t1
+        out["scatter_s"] += t3 - t2
+        out["outputs_s"] += t4 - t3
+        out["steps"] += steps
+    t0 = tick()
+    words = torch.cat([o["words"] for o in segs])
+    limit = torch.full((words.shape[0],), N, dtype=torch.int32, device=dev)
+    ops.done_prefix_packed(words, limit, N)
+    out["prefix_s"] = tick() - t0
+    out["scan_ms_per_step"] = 1e3 * out["scan_s"] / max(out["steps"], 1)
+    return out
+
+
+def profiled(dev, n_seeds, steps) -> dict:
+    """``torch.profiler`` over a window of ``steps`` claim steps of every
+    policy segment (the scan dominates ``run_s``; a trace of the whole
+    sweep holds ~10^6 events and takes longer than the sweep)."""
+    seeds, lane, traffic = _grid(n_seeds)
+    reqs = _fused_requests(seeds, lane_params=lane, traffic_params=traffic)
+    lanes = len(seeds)
+    segs = []
+    for req in reqs:
+        pol = tp._resolve_policy(req["policy"])
+        params = tp._lane_tensors(
+            tp.default_lane_params(**req["lane_params"]), tp.LaneParams, lanes, dev
+        )
+        su = tp._lane_setup(
+            pol,
+            "udp",
+            "fwd",
+            N,
+            256,
+            W,
+            N + (-N % CHUNK),
+            tp._lane_tensors(
+                tp.default_traffic_params(**traffic), tp.TrafficParams, lanes, dev
+            ),
+            tp._lane_tensors(tp.default_fault_params(), tp.FaultParams, lanes, dev),
+            seeds,
+        )
+        st = tp._init_state(lanes, W, dev)
+        u_t, stall_t = su.u.t().contiguous(), su.stalls.t().contiguous()
+        segs.append((pol, params, su, st, u_t, stall_t))
+
+    def window(first):
+        for pol, params, su, st, u_t, stall_t in segs:
+            for s in range(first, first + steps):
+                tp._claim_step(pol, MB, params, su, st, u_t[s], stall_t[s])
+
+    window(0)  # warm
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        window(steps)
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    kernels = [
+        e
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and getattr(e, "self_device_time_total", 0) > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_steps = steps * len(segs)
+    aten = [e for e in prof.events() if e.name.startswith("aten::")]
+    outer = [
+        e
+        for e in aten
+        if e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")
+    ]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(
+        window_steps=n_steps,
+        wall_s=wall,
+        device_busy_s=busy_us / 1e6,
+        device_busy_share=busy_us / 1e6 / wall,
+        kernels_per_step=sum(e.count for e in kernels) / n_steps,
+        aten_ops_per_step=len(outer) / n_steps,
+        host_ms_per_step=1e3 * wall / n_steps,
+        device_ms_per_step=busy_us / 1e3 / n_steps,
+        top_kernels=[
+            dict(
+                name=e.key[:90], count=e.count, device_ms=e.self_device_time_total / 1e3
+            )
+            for e in top
+        ],
+    )
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=14)
+    ap.add_argument("--profile-steps", type=int, default=32)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_sweep_profile: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip()
+    run_sweep(SweepRequest(seeds=np.arange(2), n_packets=64), device=dev)  # warm
+    res = dict(
+        card=card,
+        lanes=5 * 72 * args.seeds,
+        phases=phases(dev, args.seeds),
+        profile=profiled(dev, args.seeds, args.profile_steps),
+    )
+    text = json.dumps(res, indent=1)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
