@@ -9,6 +9,10 @@ flags, so an edited source is rebuilt and a stale library is never
 loaded.  :func:`build` starts one ``nvcc`` per missing source, all at
 once, and waits for all of them; a failed build raises with nvcc's
 stderr.  Nothing is built when this module is imported.
+
+:func:`count_launch` adds one to a wrapper's ``launches`` under a lock:
+the serving engine launches kernels from its prefill worker threads
+and its decode thread at once, and ``+=`` on an attribute is not atomic.
 """
 
 from __future__ import annotations
@@ -18,14 +22,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: every CUDA source of the port, by library name
-SOURCES = {"done_prefix": CSRC / "done_prefix.cu"}
+SOURCES = {
+    name: CSRC / f"{name}.cu"
+    for name in (
+        "done_prefix",
+        "done_prefix_batch",
+        "rmsnorm",
+        "flash_attention",
+        "decode_attention",
+    )
+}
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -39,6 +53,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -97,8 +113,15 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _loaded[name] = lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel (thread-safe)."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -1,4 +1,10 @@
-"""CUDA wrapper of the packed done-prefix kernel (``csrc/done_prefix.cu``).
+"""CUDA wrappers of the done-prefix kernels.
+
+``done_prefix_packed_cuda`` (``csrc/done_prefix.cu``) serves the lane
+engine; ``done_prefix_batch_cuda`` (``csrc/done_prefix_batch.cu``) the
+serving engine's slot rings.
+
+Packed (``done_prefix_packed_cuda``).
 
 Replaces the TPU kernel ``src/repro/kernels/doneprefix.py:106-162``
 (``_done_prefix_packed_kernel`` under ``done_prefix_packed_pallas``):
@@ -16,6 +22,17 @@ Bound on the H100: bytes.  At the sweep's shape, [5040, 63] words, the
 kernel moves about 1.3 MB (each word and limit read once, one int32
 written per row), about 0.4 us at 3.35 TB/s -- far below the cost of a
 launch, so launch latency dominates and the simple layout is enough.
+
+Batched rings (``done_prefix_batch_cuda``).  Replaces the TPU kernel
+``src/repro/kernels/doneprefix.py:58-103`` (``_done_prefix_kernel``
+under ``done_prefix_batch_pallas``, ``:81``): for each of R bool rings
+the contiguous run of done slots from ``start`` (mod n), capped by
+``limit`` -- the paper's TAIL advance, for every decode-slot ring of
+the serving engine in one launch.  One warp per ring walks it in
+rotated order, 32 offsets a round; ``__ballot_sync`` finds the first
+not-done offset and the loop stops there.  Bound: bytes (each mask byte
+at most once), a few bytes at the serving engine's shapes, so a launch
+is all it costs.
 """
 
 from __future__ import annotations
@@ -26,9 +43,10 @@ import torch
 
 from . import _build
 
-__all__ = ["done_prefix_packed_cuda"]
+__all__ = ["done_prefix_packed_cuda", "done_prefix_batch_cuda"]
 
 _fn = None
+_batch_fn = None
 
 
 def _launcher():
@@ -89,9 +107,74 @@ def done_prefix_packed_cuda(
     )
     if rc != 0:
         raise RuntimeError(f"done_prefix_packed launch failed: cudaError {rc}")
-    done_prefix_packed_cuda.launches += 1
+    _build.count_launch(done_prefix_packed_cuda)
     return out
 
 
 #: launches of the kernel since the count was last set to 0
 done_prefix_packed_cuda.launches = 0
+
+
+def _batch_launcher():
+    global _batch_fn
+    if _batch_fn is None:
+        fn = _build.load("done_prefix_batch").done_prefix_batch_launch
+        fn.argtypes = [
+            ctypes.c_void_p,  # done (one byte per slot)
+            ctypes.c_void_p,  # start
+            ctypes.c_void_p,  # limit
+            ctypes.c_void_p,  # out
+            ctypes.c_int,  # rows
+            ctypes.c_int,  # n
+            ctypes.c_int,  # device
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _batch_fn = fn
+    return _batch_fn
+
+
+def done_prefix_batch_cuda(
+    done: torch.Tensor,  # [R, n] bool, one READ_DONE row per ring, CUDA
+    start: torch.Tensor,  # [R] int32 TAIL slot index per ring
+    limit: torch.Tensor,  # [R] int32 cap per ring
+) -> torch.Tensor:  # [R] int32
+    """Launch the kernel on the current stream; raises on any input it
+    does not take and on a launch the driver refuses."""
+    ts = (done, start, limit)
+    if not all(t.is_cuda and t.device == done.device for t in ts):
+        raise ValueError("done_prefix_batch_cuda: tensors must share a CUDA device")
+    if done.dtype != torch.bool or start.dtype != torch.int32:
+        raise TypeError("done_prefix_batch_cuda: done must be bool, start int32")
+    if limit.dtype != torch.int32:
+        raise TypeError("done_prefix_batch_cuda: limit must be int32")
+    if done.dim() != 2 or start.shape != (done.shape[0],) or limit.shape != start.shape:
+        raise ValueError(
+            f"done_prefix_batch_cuda: done [R, n], start and limit [R], got "
+            f"{tuple(done.shape)}, {tuple(start.shape)}, {tuple(limit.shape)}"
+        )
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("done_prefix_batch_cuda: inputs must be contiguous")
+    rows, n = done.shape
+    if not 0 < n < 2**30 or rows >= 2**31:
+        raise ValueError(f"done_prefix_batch_cuda: ring size {n} or rows {rows}")
+    out = torch.empty(rows, dtype=torch.int32, device=done.device)
+    stream = torch.cuda.current_stream(done.device).cuda_stream
+    rc = _batch_launcher()(
+        done.data_ptr(),
+        start.data_ptr(),
+        limit.data_ptr(),
+        out.data_ptr(),
+        rows,
+        n,
+        done.device.index or 0,
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"done_prefix_batch launch failed: cudaError {rc}")
+    _build.count_launch(done_prefix_batch_cuda)
+    return out
+
+
+#: launches of the kernel since the count was last set to 0
+done_prefix_batch_cuda.launches = 0

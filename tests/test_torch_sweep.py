@@ -285,6 +285,15 @@ def test_port_loads_neither_jax_nor_repro():
             SweepRequest(seeds=np.arange(2), n_packets=64), device="cpu"
         )
         assert (res["corec"].claimed_prefix.numpy() == 64).all()
+        from repro_torch.config import ArchConfig
+        from repro_torch.serving import EngineConfig, InferenceEngine, Request
+        cfg = ArchConfig("t", "dense", n_layers=1, d_model=32, n_heads=2,
+                         n_kv_heads=1, d_ff=64, vocab=64, dtype="float32")
+        eng = InferenceEngine(cfg, EngineConfig(n_slots=2, max_seq=8,
+                              eos_token=-1), device="cpu")
+        out = eng.run([Request(rid=i, prompt=[3, 4, 5], max_new_tokens=2)
+                       for i in range(2)], timeout=60)
+        assert sorted(r.rid for r in out) == [0, 1] and eng.head == eng.tail
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "repro")
