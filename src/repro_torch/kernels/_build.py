@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its
 own with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the
 root of the checkout (listed in ``.gitignore``), then loads with
 ``ctypes``.  No PyTorch headers are included, so a source builds in
-seconds.  The library's file name carries a digest of its source and
-flags, so an edited source is rebuilt and a stale library is never
+seconds.  The library's file name carries a digest of its source, of
+the shared device helpers in ``csrc/common.cuh`` and of the flags, so
+an edited source or header is rebuilt and a stale library is never
 loaded.  :func:`build` starts one ``nvcc`` per missing source, all at
 once, and waits for all of them; a failed build raises with nvcc's
 stderr.  Nothing is built when this module is imported.
@@ -28,6 +29,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: device helpers that every source including them shares
+COMMON = CSRC / "common.cuh"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: every CUDA source of the port, by library name
 SOURCES = {
@@ -38,6 +41,8 @@ SOURCES = {
         "rmsnorm",
         "flash_attention",
         "decode_attention",
+        "rwkv6",
+        "ssd",
     )
 }
 NVCC_FLAGS = (
@@ -67,6 +72,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes())
+    digest.update(COMMON.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

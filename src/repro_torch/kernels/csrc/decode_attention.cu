@@ -39,30 +39,13 @@
 // Plain C interface (bound with ctypes): type code 0 = fp32, 1 = bf16.
 // The launcher returns cudaGetLastError() and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTileK = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 size_t smem_floats(int G, int D) {
   // q, acc: G x D; K: kTileK x (D + 1); V: kTileK x D; p: G x kTileK;

@@ -43,9 +43,7 @@
 // Plain C interface (bound with ctypes): type code 0 = fp32, 1 = bf16.
 // The launcher returns cudaGetLastError() and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 #include <stdint.h>
 
 namespace {
@@ -54,21 +52,6 @@ constexpr int kRows = 64;     // queries per block
 constexpr int kTileK = 64;    // keys per shared-memory tile
 constexpr int kSplit = 4;     // threads per query row
 constexpr int kThreads = kRows * kSplit;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -26,28 +26,12 @@
 // launches on the caller's stream, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unknown type code).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -18,17 +18,24 @@ here and is rejected by name.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import ref
 from .decode_attention import decode_attention_cuda
 from .doneprefix import done_prefix_batch_cuda, done_prefix_packed_cuda
 from .flash_attention import flash_attention_cuda
 from .rmsnorm import rmsnorm_cuda
+from .rwkv6 import rwkv6_cuda
+from .ssd import ssd_cuda
 
 __all__ = [
     "attention",
     "decode_attention",
     "rmsnorm",
+    "rwkv6",
+    "rwkv6_step",
+    "ssd",
+    "ssd_step",
     "done_prefix",
     "done_prefix_batch",
     "done_prefix_packed",
@@ -134,6 +141,149 @@ def rmsnorm(
         )
         return y.reshape(x.shape)
     return ref.rmsnorm_ref(x, weight, eps=eps)
+
+
+def _heads_first(a: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """``[B, T, H, ...]`` -> ``[B, H, T + pad, ...]`` (a permuted view,
+    padded along T with ``value``): the plain scans' layout."""
+    a = a.movedim(2, 1)
+    if not pad:
+        return a
+    tail = (0, 0) * (a.dim() - 3)
+    return F.pad(a, tail + (0, pad), value=value)
+
+
+def rwkv6(
+    r: torch.Tensor,  # [B, T, H, N]
+    k: torch.Tensor,  # [B, T, H, N]
+    v: torch.Tensor,  # [B, T, H, N]
+    w: torch.Tensor,  # [B, T, H, N] decay in (0, 1)
+    u: torch.Tensor,  # [H, N] bonus
+    state: torch.Tensor | None = None,  # [B, H, N, N] fp32
+    chunk: int = 32,
+    impl: str = "auto",
+):  # -> (o [B, T, H, N] in r's dtype, final state [B, H, N, N] fp32)
+    """Chunked WKV6 over a whole sequence (``repro.kernels.ops.rwkv6``).
+    The plain route pads T to a multiple of ``chunk`` with ``w = 1`` and
+    ``r = k = v = 0`` (no decay, no contribution) and slices o back; the
+    kernel reads the model layout in place and takes the ragged last
+    chunk as that padding would."""
+    B, T, H, N = r.shape
+    if state is None:
+        state = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+    if _use_kernel(impl, r):
+        return rwkv6_cuda(
+            r.contiguous(),
+            k.contiguous(),
+            v.contiguous(),
+            w.float().contiguous(),
+            u.float().contiguous(),
+            state.float().contiguous(),
+            chunk=chunk,
+        )
+    pad = (-T) % chunk
+    o, s = ref.rwkv6_chunk_ref(
+        _heads_first(r, pad),
+        _heads_first(k, pad),
+        _heads_first(v, pad),
+        _heads_first(w, pad, value=1.0),
+        u.float(),
+        state,
+        chunk=chunk,
+    )
+    return o[:, :, :T].movedim(1, 2), s
+
+
+def rwkv6_step(
+    r: torch.Tensor,  # [B, H, N] one token
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,  # [H, N]
+    state: torch.Tensor,  # [B, H, N, N]
+):  # -> (o [B, H, N] in r's dtype, new state fp32)
+    """One decode step of the WKV6 recurrence, plain PyTorch on any
+    device (``repro.kernels.ops.rwkv6_step``, plain ``jnp`` there too)."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    Sf = state.float()
+    kv = kf[..., :, None] * vf[..., None, :]
+    o = torch.einsum("bhij,bhi->bhj", Sf + u[None, :, :, None] * kv, rf)
+    return o.to(r.dtype), wf[..., :, None] * Sf + kv
+
+
+def ssd(
+    x: torch.Tensor,  # [B, T, H, P]
+    dt: torch.Tensor,  # [B, T, H] step sizes
+    A: torch.Tensor,  # [H] decay rates
+    B: torch.Tensor,  # [B, T, G, N]
+    C: torch.Tensor,  # [B, T, G, N]
+    D: torch.Tensor,  # [H] skip
+    state: torch.Tensor | None = None,  # [B, H, P, N] fp32
+    chunk: int = 64,
+    impl: str = "auto",
+):  # -> (y [B, T, H, P], final state [B, H, P, N] fp32)
+    """Mamba-2 SSD chunk scan (``repro.kernels.ops.ssd``), each route as
+    its reference counterpart computes it.  The kernel route gets y
+    without D in x's dtype and adds ``D * x`` outside: with fp32 D and a
+    bf16 x the sum promotes to fp32, as ``jnp`` does.  The plain route
+    repeats B/C over the H/G heads of a group, zero-pads T (``dt = 0``:
+    no decay, no input) and adds D inside, in fp32, before the cast to
+    x's dtype.  In bf16 the two routes therefore round differently."""
+    Bb, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if state is None:
+        state = torch.zeros(Bb, H, P, N, dtype=torch.float32, device=x.device)
+    if _use_kernel(impl, x):
+        y, s = ssd_cuda(
+            x,
+            dt.float().contiguous(),
+            A.float().contiguous(),
+            B,
+            C,
+            state.float().contiguous(),
+            chunk=chunk,
+        )
+        return y + D[None, None, :, None] * x, s
+    rep = H // G
+    Bh = B.repeat_interleave(rep, dim=2)
+    Ch = C.repeat_interleave(rep, dim=2)
+    pad = (-T) % chunk
+    y, s = ref.ssd_chunk_ref(
+        _heads_first(x, pad),
+        _heads_first(dt, pad),
+        A,
+        _heads_first(Bh, pad),
+        _heads_first(Ch, pad),
+        D,
+        state,
+        chunk=chunk,
+    )
+    return y[:, :, :T].movedim(1, 2), s
+
+
+def ssd_step(
+    x: torch.Tensor,  # [B, H, P]
+    dt: torch.Tensor,  # [B, H]
+    A: torch.Tensor,  # [H]
+    B: torch.Tensor,  # [B, G, N]
+    C: torch.Tensor,  # [B, G, N]
+    D: torch.Tensor,  # [H]
+    state: torch.Tensor,  # [B, H, P, N]
+):  # -> (y [B, H, P] in x's dtype, new state fp32)
+    """One step of the SSD recurrence, plain PyTorch on any device
+    (``repro.kernels.ops.ssd_step``, plain ``jnp`` there too).  No model
+    calls it: Zamba's decode step runs :func:`ssd` on its one token, as
+    the reference's ``_mamba_step`` does."""
+    rep = x.shape[1] // B.shape[1]
+    Bh = B.repeat_interleave(rep, dim=1).float()
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(A[None].float() * dtf)
+    S_new = dA[..., None, None] * state + torch.einsum(
+        "bhp,bhn->bhpn", dtf[..., None] * xf, Bh
+    )
+    y = torch.einsum("bhpn,bhn->bhp", S_new, Ch) + D[None, :, None] * xf
+    return y.to(x.dtype), S_new
 
 
 def done_prefix_batch(

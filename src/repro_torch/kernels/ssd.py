@@ -1,0 +1,162 @@
+"""CUDA wrapper of the Mamba-2 SSD chunk-scan kernel (``csrc/ssd.cu``).
+
+Replaces the TPU kernel ``src/repro/kernels/ssd.py:29-84``
+(``_ssd_kernel`` under ``ssd_pallas``, ``:87``): the state-space-dual
+scan ``S_t = exp(A dt_t) S_{t-1} + dt_t x_t B_t^T``, ``y_t = S_t C_t``
+in chunks whose ``[P, N]`` fp32 state crosses a sequential chunk loop;
+returns y without the D-skip (``ops.ssd`` adds it, as the reference's
+``ops.ssd`` does) and the final fp32 state.
+
+Design: the kernel reads the model layout where it lies: x
+``[B, T, H, P]``, dt ``[B, T, H]``, B/C ``[B, T, G, N]`` read by group
+``h // (H / G)`` (no H/G-fold copy), x, B and C possibly views into the
+Mamba block's conv output (a batch and a token stride each).  A ragged
+last chunk is treated as the reference's zero padding would be.  One
+512-thread block per (b, h, Pb channels), the state slice in shared
+memory, scalar fp32 FMAs; Pb is the whole head where the grid already
+has two blocks per SM (a decode step), else 16 (a prefill).
+
+Bound on the H100 at zamba2-1.2b's prefill (B = 1, T = 384, 64 heads,
+P = N = 64, G = 1, chunk 64): 0.61 GFLOP of fp32 (9.1 us at 67 TFLOP/s)
+against about 8.5 MB (2.5 us at 3.35 TB/s), so operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .rmsnorm import DTYPE_CODES
+
+__all__ = ["ssd_cuda", "MAX_CHUNK", "MAX_DIM"]
+
+#: the largest chunk, head dim P and state width N the kernel takes
+MAX_CHUNK = 64
+MAX_DIM = 64
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = _build.load("ssd").ssd_launch
+        fn.argtypes = [
+            ctypes.c_void_p,  # x
+            ctypes.c_void_p,  # dt
+            ctypes.c_void_p,  # A
+            ctypes.c_void_p,  # B
+            ctypes.c_void_p,  # C
+            ctypes.c_void_p,  # s0
+            ctypes.c_void_p,  # y
+            ctypes.c_void_p,  # s_out
+            *[ctypes.c_longlong] * 6,  # batch and token strides of x, B, C
+            ctypes.c_int,  # batch
+            ctypes.c_int,  # T
+            ctypes.c_int,  # H
+            ctypes.c_int,  # G
+            ctypes.c_int,  # P
+            ctypes.c_int,  # N
+            ctypes.c_int,  # chunk
+            ctypes.c_int,  # type code
+            ctypes.c_int,  # device
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _rows_dense(t: torch.Tensor) -> bool:
+    """The last two dims dense (a token's [heads, width] block)."""
+    inner = t.shape[-1] == 1 or t.stride(-1) == 1
+    return inner and (t.shape[-2] == 1 or t.stride(-2) == t.shape[-1])
+
+
+def ssd_cuda(
+    x: torch.Tensor,  # [B, T, H, P] fp32 or bf16, on a CUDA device
+    dt: torch.Tensor,  # [B, T, H] fp32 step sizes
+    A: torch.Tensor,  # [H] fp32 decay rates
+    Bm: torch.Tensor,  # [B, T, G, N], x's dtype
+    Cm: torch.Tensor,  # [B, T, G, N], x's dtype
+    state: torch.Tensor,  # [B, H, P, N] fp32 initial state
+    chunk: int = 64,
+):  # -> (y [B, T, H, P] in x's dtype, no D-skip; final state fp32)
+    """Launch the kernel on the current stream; raises on any input it
+    does not take and on a launch the CUDA runtime refuses."""
+    ts = (x, dt, A, Bm, Cm, state)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("ssd_cuda: tensors must share a CUDA device")
+    if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError("ssd_cuda: x, B, C must all be fp32 or bf16")
+    if not all(t.dtype == torch.float32 for t in (dt, A, state)):
+        raise TypeError("ssd_cuda: dt, A and the state must be fp32")
+    if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape:
+        raise ValueError("ssd_cuda: x [B, T, H, P], B/C [B, T, G, N]")
+    Bb, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (
+        Bm.shape[:2] != (Bb, T)
+        or G == 0
+        or H % G
+        or dt.shape != (Bb, T, H)
+        or A.shape != (H,)
+        or state.shape != (Bb, H, P, N)
+    ):
+        raise ValueError(
+            f"ssd_cuda: x {tuple(x.shape)}, B {tuple(Bm.shape)}, dt "
+            f"{tuple(dt.shape)}, A {tuple(A.shape)} and state "
+            f"{tuple(state.shape)} disagree, or H is not a multiple of G"
+        )
+    if not (0 < P <= MAX_DIM and (P <= 16 or P % 16 == 0) and 0 < N <= MAX_DIM):
+        raise ValueError(f"ssd_cuda: P={P}, N={N}: at most {MAX_DIM}, 16 | P past 16")
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_cuda: chunk {chunk} not in 1..{MAX_CHUNK}")
+    if not (
+        all(_rows_dense(t) for t in (x, Bm, Cm))
+        and all(t.is_contiguous() for t in (dt, A, state))
+    ):
+        raise ValueError(
+            "ssd_cuda: x, B, C need dense last two dims; dt, A, state contiguous"
+        )
+    if Bb * H >= 2**31:
+        raise ValueError(f"ssd_cuda: shape {tuple(x.shape)} out of range")
+    y = torch.empty((Bb, T, H, P), dtype=x.dtype, device=x.device)
+    s_out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _launcher()(
+        x.data_ptr(),
+        dt.data_ptr(),
+        A.data_ptr(),
+        Bm.data_ptr(),
+        Cm.data_ptr(),
+        state.data_ptr(),
+        y.data_ptr(),
+        s_out.data_ptr(),
+        x.stride(0),
+        x.stride(1),
+        Bm.stride(0),
+        Bm.stride(1),
+        Cm.stride(0),
+        Cm.stride(1),
+        Bb,
+        T,
+        H,
+        G,
+        P,
+        N,
+        int(chunk),
+        DTYPE_CODES[x.dtype],
+        x.device.index or 0,
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ssd launch failed: cudaError {rc}")
+    _build.count_launch(ssd_cuda)
+    return y, s_out
+
+
+#: launches of the kernel since the count was last set to 0
+ssd_cuda.launches = 0

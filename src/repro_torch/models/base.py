@@ -1,0 +1,80 @@
+"""What the port's model families share: stacked layer specs, and the
+``init``/``prepare``/``init_cache`` half of their API.
+
+Parameters travel as an argument (a nested dict of tensors, the
+reference's pytree), so one model object serves fp32 masters and
+prepared trees alike; the model itself holds only the config.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..compat import resolve_device
+from ..config import ArchConfig
+from .layers import cdtype
+from .spec import ParamSpec, init_params, spec_map
+
+__all__ = ["LMBase"]
+
+
+def _stack(n: int, specs):
+    """Prepend a layer dim to every leaf of a spec tree."""
+    return spec_map(
+        lambda s: ParamSpec((n,) + s.shape, (None,) + s.axes, s.init, s.scale, s.dtype),
+        specs,
+    )
+
+
+def _unstack(tree, n: int):
+    """A stacked ``[L, ...]`` tree -> L per-layer trees of views."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+class LMBase(nn.Module):
+    """Subclasses define ``param_specs()``, ``cache_specs(batch, seq)``
+    and ``FP32_KEYS``."""
+
+    #: the subtrees and leaves, by key, that decode reads as stored fp32
+    #: (the reference casts them to fp32, or not at all, at use)
+    FP32_KEYS: Tuple[str, ...] = ()
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    def init(self, generator: Optional[torch.Generator] = None, device=None):
+        """fp32 master parameters on ``device`` (default: the card), drawn
+        from ``generator`` (default: seed 0 on that device)."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return init_params(self.param_specs(), generator, dev)
+
+    def prepare(self, params):
+        """The tree to run: every floating leaf outside ``FP32_KEYS`` cast
+        to the compute dtype once (the values the reference's cast at
+        each use gives); the leaves under ``FP32_KEYS`` as stored, as
+        decode reads them.  Prefill still rounds those per call, as the
+        reference's ``cast_tree`` does."""
+        dt = cdtype(self.cfg)
+
+        def go(tree, keep=False):
+            if isinstance(tree, dict):
+                return {k: go(v, keep or k in self.FP32_KEYS) for k, v in tree.items()}
+            return tree if keep or not tree.is_floating_point() else tree.to(dt)
+
+        return go(params)
+
+    def init_cache(self, batch_size: int, seq_len: int, device):
+        """An empty cache of :meth:`cache_specs` on ``device``."""
+        return spec_map(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            self.cache_specs(batch_size, seq_len),
+        )

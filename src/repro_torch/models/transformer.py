@@ -33,10 +33,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-from torch import nn
 
-from ..compat import resolve_device
 from ..config import ArchConfig
+from .base import LMBase, _stack, _unstack
 from .layers import (
     apply_norm,
     attention_block,
@@ -53,34 +52,19 @@ from .layers import (
     rope_tables,
     unembed,
 )
-from .spec import ParamSpec, init_params, spec_map
+from .spec import ParamSpec
 
 __all__ = ["DecoderLM"]
 
 
-def _stack(n: int, specs):
-    """Prepend a layer dim to every leaf of a spec tree."""
-    return spec_map(
-        lambda s: ParamSpec((n,) + s.shape, (None,) + s.axes, s.init, s.scale, s.dtype),
-        specs,
-    )
+class DecoderLM(LMBase):
+    """``prepare`` casts every weight but the norms' (decode reads those
+    as stored, fp32)."""
 
-
-def _unstack(tree, n: int):
-    """A stacked ``[L, ...]`` tree -> L per-layer trees of views."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return torch.unbind(tree, 0)
-
-
-class DecoderLM(nn.Module):
-    """Parameters travel as an argument (a nested dict of tensors, the
-    reference's pytree), so one module serves fp32 masters and prepared
-    trees alike; the module itself holds only the config."""
+    FP32_KEYS = ("ln1", "ln2", "final_norm")
 
     def __init__(self, cfg: ArchConfig):
-        super().__init__()
+        super().__init__(cfg)
         if cfg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: the MoE block is not ported yet: ROADMAP.md "
@@ -91,7 +75,6 @@ class DecoderLM(nn.Module):
                 f"{cfg.name}: the VLM cross-attention groups are not ported "
                 "yet: ROADMAP.md Queue A, item 11"
             )
-        self.cfg = cfg
         self.res_scale = (
             cfg.depth_scale / (cfg.n_layers**0.5) if cfg.depth_scale else 1.0
         )
@@ -115,33 +98,6 @@ class DecoderLM(nn.Module):
             "final_norm": norm_specs(cfg),
             "layers": _stack(cfg.n_layers, self._layer_specs()),
         }
-
-    def init(self, generator: Optional[torch.Generator] = None, device=None):
-        """fp32 master parameters on ``device`` (default: the card), drawn
-        from ``generator`` (default: seed 0 on that device)."""
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        return init_params(self.param_specs(), generator, dev)
-
-    def prepare(self, params):
-        """The tree to run: every leaf but the norm weights cast to the
-        compute dtype, once (the values ``use_weight`` and ``cast_tree``
-        give at each use).  Norm weights stay as stored: decode uses
-        them so, prefill rounds them per call as the reference does."""
-        dt = cdtype(self.cfg)
-
-        def go(tree, in_norm=False):
-            if isinstance(tree, dict):
-                return {
-                    k: go(v, in_norm or k in ("ln1", "ln2", "final_norm"))
-                    for k, v in tree.items()
-                }
-            if in_norm or not tree.is_floating_point():
-                return tree
-            return tree.to(dt)
-
-        return go(params)
 
     # ------------------------------------------------------------------
     # forward (prefill)
@@ -201,13 +157,6 @@ class DecoderLM(nn.Module):
             "v": ParamSpec(kv_shape, kv_axes, "zeros", dtype=dt),
             "lengths": ParamSpec((batch_size,), ("batch",), "zeros", dtype=torch.int32),
         }
-
-    def init_cache(self, batch_size: int, seq_len: int, device) -> Dict[str, Any]:
-        """An empty cache of :meth:`cache_specs` on ``device``."""
-        return spec_map(
-            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
-            self.cache_specs(batch_size, seq_len),
-        )
 
     @torch.inference_mode()
     def prefill(self, params, batch, max_seq: Optional[int] = None):

@@ -1,0 +1,379 @@
+"""Zamba2-style hybrid, a Mamba2 (SSD) backbone with one shared
+attention block: the port of ``repro.models.zamba.ZambaLM``.
+
+* ``n_layers`` Mamba2 blocks: in_proj -> causal depthwise conv of width
+  4 over (x, B, C) -> SiLU -> the SSD chunk scan
+  (:func:`repro_torch.kernels.ops.ssd`, the CUDA kernel on the card, in
+  prefill and, with one token, in decode, as the reference's
+  ``_mamba_step`` does) -> gated RMSNorm -> out_proj.
+* Every ``shared_attn_every`` layers ONE weight-shared attention + MLP
+  block runs on ``concat([hidden, initial embedding])`` (2 d_model wide)
+  with per-invocation LoRA adapters on the query and the FFN input; its
+  output is added to the residual stream.  Each invocation owns a KV
+  cache in decode.  Attention, decode attention and RMSNorm go through
+  the port's kernels.
+* The stack is ``n_groups`` x ``period`` Mamba blocks, each group ended
+  by the shared block, then ``n_extra`` Mamba blocks (``mamba_x``).
+
+API as ``transformer.DecoderLM``'s.  The reference's two cast points
+are kept: prefill rounds every leaf to the compute dtype first
+(``cast_tree``); decode uses the stored leaves, so ``A_log``, ``D``,
+``dt_bias``, the gated-norm weight and the norms stay fp32 there.
+``prepare`` casts every other weight once.  ``decode_step`` writes the
+new states and K/V into the cache in place, the K/V write clamped to
+the last position past ``max_seq`` as the reference's
+``dynamic_update_slice`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ArchConfig
+from ..kernels import ops
+from .base import LMBase, _stack, _unstack
+from .layers import (
+    _out,
+    _proj,
+    apply_norm,
+    apply_rope,
+    cast_tree,
+    cdtype,
+    embed_specs,
+    embed_tokens,
+    norm_specs,
+    ops_impl,
+    rope_tables,
+    unembed,
+)
+from .spec import ParamSpec
+
+__all__ = ["ZambaLM"]
+
+_CONV_K = 4  # mamba short-conv window
+
+
+class ZambaLM(LMBase):
+    FP32_KEYS = ("ln", "ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "gn_w")
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        if not (cfg.ssm_state > 0 and cfg.shared_attn_every > 0):
+            raise ValueError(f"{cfg.name}: not a Zamba configuration")
+        self.d_in = cfg.ssm_expand * cfg.d_model
+        self.P = cfg.ssm_head_dim
+        if self.d_in % self.P:
+            raise ValueError(f"{cfg.name}: d_inner {self.d_in} not a multiple of P")
+        self.H = self.d_in // self.P  # ssm heads
+        self.G = 1  # B/C groups
+        self.N = cfg.ssm_state
+        self.conv_dim = self.d_in + 2 * self.G * self.N
+        self.period = cfg.shared_attn_every
+        self.n_groups = cfg.n_layers // self.period
+        self.n_extra = cfg.n_layers - self.n_groups * self.period
+
+    # ------------------------------------------------------------------
+    def _mamba_specs(self):
+        cfg = self.cfg
+        d, d_in, H, G, N = cfg.d_model, self.d_in, self.H, self.G, self.N
+        return {
+            "ln": norm_specs(cfg),
+            "in_proj": ParamSpec((d, 2 * d_in + 2 * G * N + H), ("embed", "ssm_inner")),
+            "conv_w": ParamSpec(
+                (_CONV_K, self.conv_dim), (None, "ssm_inner"), scale=0.2
+            ),
+            "conv_b": ParamSpec((self.conv_dim,), ("ssm_inner",), "zeros"),
+            "A_log": ParamSpec((H,), ("ssm_heads",), "constant", scale=0.0),
+            "D": ParamSpec((H,), ("ssm_heads",), "ones"),
+            "dt_bias": ParamSpec((H,), ("ssm_heads",), "constant", scale=-1.0),
+            "gn_w": ParamSpec((d_in,), ("ssm_inner",), "ones"),
+            "out_proj": ParamSpec((d_in, d), ("ssm_inner", "embed")),
+        }
+
+    def _shared_specs(self):
+        cfg = self.cfg
+        d, ff = cfg.d_model, cfg.d_ff
+        dh, Hh, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        return {
+            "ln1": norm_specs(cfg.replace(d_model=2 * d)),
+            "wq": ParamSpec((2 * d, Hh, dh), ("embed", "heads", None)),
+            "wk": ParamSpec((2 * d, Hkv, dh), ("embed", "kv_heads", None)),
+            "wv": ParamSpec((2 * d, Hkv, dh), ("embed", "kv_heads", None)),
+            "wo": ParamSpec((Hh, dh, d), ("heads", None, "embed")),
+            "ln2": norm_specs(cfg.replace(d_model=2 * d)),
+            "w1": ParamSpec((2 * d, ff), ("embed", "mlp")),
+            "w3": ParamSpec((2 * d, ff), ("embed", "mlp")),
+            "w2": ParamSpec((ff, d), ("mlp", "embed")),
+        }
+
+    def _lora_specs(self):
+        """Per-invocation adapters (stacked over n_groups)."""
+        cfg = self.cfg
+        d, r = cfg.d_model, cfg.shared_lora_rank
+        Hh, dh = cfg.n_heads, cfg.head_dim
+        return {
+            "q_a": ParamSpec((2 * d, r), ("embed", None), scale=0.01),
+            "q_b": ParamSpec((r, Hh * dh), (None, "heads"), scale=0.01),
+            "m_a": ParamSpec((2 * d, r), ("embed", None), scale=0.01),
+            "m_b": ParamSpec((r, cfg.d_ff), (None, "mlp"), scale=0.01),
+        }
+
+    def param_specs(self):
+        specs = {
+            "embed": embed_specs(self.cfg),
+            "mamba_g": _stack(self.n_groups, _stack(self.period, self._mamba_specs())),
+            "shared": self._shared_specs(),
+            "lora": _stack(self.n_groups, self._lora_specs()),
+            "final_norm": norm_specs(self.cfg),
+        }
+        if self.n_extra:
+            specs["mamba_x"] = _stack(self.n_extra, self._mamba_specs())
+        return specs
+
+    # ------------------------------------------------------------------
+    # Mamba2 block
+    # ------------------------------------------------------------------
+    def _mamba_proj(self, lp, x, dt):
+        zxbcdt = x @ lp["in_proj"].to(dt)
+        d_in, cd = self.d_in, self.conv_dim
+        z, conv_in = zxbcdt[..., :d_in], zxbcdt[..., d_in : d_in + cd]
+        return z, conv_in, zxbcdt[..., d_in + cd :]
+
+    def _mamba_post(self, lp, conv_out, dt_raw, z, ssm_state, dt):
+        cfg = self.cfg
+        B_, T = conv_out.shape[0], conv_out.shape[1]
+        d_in, G, N, H, P = self.d_in, self.G, self.N, self.H, self.P
+        xc = conv_out[..., :d_in]
+        Bm = conv_out[..., d_in : d_in + G * N].reshape(B_, T, G, N)
+        Cm = conv_out[..., d_in + G * N :].reshape(B_, T, G, N)
+        dtv = F.softplus(dt_raw.float() + lp["dt_bias"].float())
+        A = -torch.exp(lp["A_log"].float())
+        y, new_state = ops.ssd(
+            xc.reshape(B_, T, H, P),
+            dtv,
+            A,
+            Bm,
+            Cm,
+            lp["D"].float(),
+            ssm_state,
+            chunk=cfg.ssd_chunk,
+            impl=ops_impl(cfg),
+        )
+        # gated RMSNorm (the mamba2 norm), fp32
+        yf = y.reshape(B_, T, d_in).float()
+        yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
+        y = (yf * lp["gn_w"].float()).to(dt) * F.silu(z)
+        return y @ lp["out_proj"].to(dt), new_state
+
+    def _conv(self, lp, window, T, dt):
+        """Depthwise causal conv of width K over ``window`` [B, T+K-1, c]."""
+        w = lp["conv_w"].to(dt)
+        out = sum(window[:, i : i + T] * w[i] for i in range(_CONV_K))
+        return F.silu(out + lp["conv_b"].to(dt))
+
+    def _mamba_block(self, lp, x, dt):
+        """Full-sequence Mamba block -> (x', ssm state, conv state of the
+        last K - 1 conv inputs)."""
+        h = apply_norm(lp["ln"], x, self.cfg)
+        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
+        B_, T = x.shape[0], x.shape[1]
+        ssm0 = torch.zeros(B_, self.H, self.P, self.N, device=x.device)
+        pad = conv_in.new_zeros(B_, _CONV_K - 1, self.conv_dim)
+        ci = torch.cat([pad, conv_in], dim=1)
+        conv_out = self._conv(lp, ci, T, dt)
+        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm0, dt)
+        return x + out, new_ssm, ci[:, -(_CONV_K - 1) :]
+
+    def _mamba_step(self, lp, x, conv_state, ssm_state, dt):
+        """Single-token Mamba block.  conv_state: [B, K-1, conv_dim]."""
+        h = apply_norm(lp["ln"], x, self.cfg)
+        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
+        window = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
+        conv_out = self._conv(lp, window, 1, dt)
+        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm_state, dt)
+        return x + out, window[:, 1:], new_ssm
+
+    # ------------------------------------------------------------------
+    # Shared attention block
+    # ------------------------------------------------------------------
+    def _shared_in(self, sp, lora, x, emb0, dt):
+        """The block's input ``u = [x, emb0]``, its ln1 output h, and q
+        (with the invocation's LoRA), k, v before RoPE."""
+        u = torch.cat([x, emb0], dim=-1)
+        h = apply_norm(sp["ln1"], u, self.cfg)
+        q = _proj(h, sp["wq"], dt)
+        q = q + ((h @ lora["q_a"].to(dt)) @ lora["q_b"].to(dt)).reshape(q.shape)
+        return u, q, _proj(h, sp["wk"], dt), _proj(h, sp["wv"], dt)
+
+    def _shared_mlp(self, sp, lora, u, dt):
+        h2 = apply_norm(sp["ln2"], u, self.cfg)
+        m = h2 @ sp["w1"].to(dt)
+        m = m + (h2 @ lora["m_a"].to(dt)) @ lora["m_b"].to(dt)
+        m = F.silu(m) * (h2 @ sp["w3"].to(dt))
+        return m @ sp["w2"].to(dt)
+
+    def _shared_block(self, sp, lora, x, emb0, dt, tables):
+        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt)
+        q, k = apply_rope(q, tables), apply_rope(k, tables)
+        o = ops.attention(q, k, v, causal=True, impl=ops_impl(self.cfg))
+        a = _out(o, sp["wo"], dt)
+        return x + a + self._shared_mlp(sp, lora, u, dt), k, v
+
+    def _shared_step(self, sp, lora, x, emb0, kc, vc, lengths, dt, tables):
+        """One token; writes its K/V into ``kc``/``vc`` at ``lengths``
+        (clamped into the cache)."""
+        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt)
+        q, k = apply_rope(q, tables), apply_rope(k, tables)
+        B_, S = kc.shape[0], kc.shape[1]
+        pos = lengths.clamp(0, S - 1).long()
+        rows = torch.arange(B_, device=lengths.device)
+        kc[rows, pos] = k[:, 0]
+        vc[rows, pos] = v[:, 0]
+        o = ops.decode_attention(q[:, 0], kc, vc, lengths + 1, impl=ops_impl(self.cfg))
+        a = _out(o, sp["wo"], dt)[:, None, :]
+        return x + a + self._shared_mlp(sp, lora, u, dt)
+
+    # ------------------------------------------------------------------
+    def _forward(self, params, tokens, cache=None):
+        """``params`` already through ``cast_tree``.  With ``cache`` (of
+        :meth:`cache_specs`), the states and K/V are written into it."""
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        emb0 = embed_tokens(params["embed"], tokens, cfg)
+        x = emb0
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        groups = _unstack(params["mamba_g"], self.n_groups)
+        loras = _unstack(params["lora"], self.n_groups)
+        for g, (gp, lora) in enumerate(zip(groups, loras)):
+            for j, lp in enumerate(_unstack(gp, self.period)):
+                x, ssm, conv = self._mamba_block(lp, x, dt)
+                if cache is not None:
+                    cache["ssm_g"][g, j] = ssm
+                    cache["conv_g"][g, j] = conv
+            x, k, v = self._shared_block(params["shared"], lora, x, emb0, dt, tables)
+            if cache is not None:
+                cache["attn_k"][g, :, :S] = k
+                cache["attn_v"][g, :, :S] = v
+        for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
+            x, ssm, conv = self._mamba_block(lp, x, dt)
+            if cache is not None:
+                cache["ssm_x"][j] = ssm
+                cache["conv_x"][j] = conv
+        return apply_norm(params["final_norm"], x, cfg)
+
+    @torch.inference_mode()
+    def forward(self, params, tokens, collect_state: bool = False):
+        """tokens [B, S] -> (hidden [B, S, d], (ssm, conv, k, v) of the
+        groups, (ssm, conv) of the extra layers), the states None unless
+        ``collect_state``, as the reference returns them."""
+        B, S = tokens.shape
+        cache = self.init_cache(B, S, tokens.device) if collect_state else None
+        x = self._forward(cast_tree(params, cdtype(self.cfg)), tokens, cache=cache)
+        if cache is None:
+            return x, None, None
+        ys = tuple(cache[k] for k in ("ssm_g", "conv_g", "attn_k", "attn_v"))
+        ys_x = (cache["ssm_x"], cache["conv_x"]) if self.n_extra else None
+        return x, ys, ys_x
+
+    # ------------------------------------------------------------------
+    def cache_specs(self, batch_size: int, seq_len: int):
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        Gn, Pd = self.n_groups, self.period
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        kv = ParamSpec(
+            (Gn, batch_size, seq_len, Hkv, dh),
+            (None, "batch", "cache_seq", "cache_heads", None),
+            "zeros",
+            dtype=dt,
+        )
+        specs = {
+            "ssm_g": ParamSpec(
+                (Gn, Pd, batch_size, self.H, self.P, self.N),
+                (None, None, "batch", "ssm_heads", None, None),
+                "zeros",
+                dtype=torch.float32,
+            ),
+            "conv_g": ParamSpec(
+                (Gn, Pd, batch_size, _CONV_K - 1, self.conv_dim),
+                (None, None, "batch", None, "ssm_inner"),
+                "zeros",
+                dtype=dt,
+            ),
+            "attn_k": kv,
+            "attn_v": kv,
+            "lengths": ParamSpec((batch_size,), ("batch",), "zeros", dtype=torch.int32),
+        }
+        if self.n_extra:
+            specs["ssm_x"] = ParamSpec(
+                (self.n_extra, batch_size, self.H, self.P, self.N),
+                (None, "batch", "ssm_heads", None, None),
+                "zeros",
+                dtype=torch.float32,
+            )
+            specs["conv_x"] = ParamSpec(
+                (self.n_extra, batch_size, _CONV_K - 1, self.conv_dim),
+                (None, "batch", None, "ssm_inner"),
+                "zeros",
+                dtype=dt,
+            )
+        return specs
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, max_seq: Optional[int] = None):
+        """Full-sequence prefill -> (cache with K/V padded to max_seq,
+        last logits [B, V])."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        max_seq = max_seq or S
+        if S > max_seq:
+            raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
+        params = cast_tree(params, cdtype(self.cfg))
+        cache = self.init_cache(B, max_seq, tokens.device)
+        x = self._forward(params, tokens, cache=cache)
+        cache["lengths"].fill_(S)
+        logits = unembed(params["embed"], x[:, -1:], self.cfg)
+        return cache, logits[:, 0]
+
+    @torch.inference_mode()
+    def decode_step(self, params, cache, tokens):
+        """tokens [B, 1] -> (cache', logits [B, V]), states and K/V
+        written in place."""
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        emb0 = embed_tokens(params["embed"], tokens, cfg)
+        x = emb0
+        lengths = cache["lengths"]
+        tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+        groups = _unstack(params["mamba_g"], self.n_groups)
+        loras = _unstack(params["lora"], self.n_groups)
+        ssm_g, conv_g = cache["ssm_g"], cache["conv_g"]
+        for g, (gp, lora) in enumerate(zip(groups, loras)):
+            for j, lp in enumerate(_unstack(gp, self.period)):
+                x, conv, ssm = self._mamba_step(lp, x, conv_g[g, j], ssm_g[g, j], dt)
+                ssm_g[g, j] = ssm
+                conv_g[g, j] = conv
+            x = self._shared_step(
+                params["shared"],
+                lora,
+                x,
+                emb0,
+                cache["attn_k"][g],
+                cache["attn_v"][g],
+                lengths,
+                dt,
+                tables,
+            )
+        for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
+            conv, ssm = cache["conv_x"][j], cache["ssm_x"][j]
+            x, conv, ssm = self._mamba_step(lp, x, conv, ssm, dt)
+            cache["ssm_x"][j] = ssm
+            cache["conv_x"][j] = conv
+        x = apply_norm(params["final_norm"], x, cfg)
+        logits = unembed(params["embed"], x, cfg)
+        return dict(cache, lengths=lengths + 1), logits[:, 0]

@@ -24,9 +24,9 @@ kernel in its constructor, before any thread starts; prefill (worker
 threads) and decode (the engine thread) run under
 ``torch.inference_mode()`` on each thread's current stream, the
 default stream, so a staged cache is complete before the engine thread
-copies it in; ``_insert`` writes the slot axis by name (1 for k/v, 0
-for lengths) where the reference guesses it from shapes; and
-``decode_steps``/``prefills`` count the model calls.
+copies it in; ``_insert`` writes each cache leaf's slot axis, the one
+its ``cache_specs`` names ``"batch"``, where the reference guesses it
+from shapes; and ``decode_steps``/``prefills`` count the model calls.
 """
 
 from __future__ import annotations
@@ -47,10 +47,6 @@ from .request import Request, RequestResult
 from .scheduler import make_scheduler
 
 __all__ = ["EngineConfig", "InferenceEngine"]
-
-#: the slot (batch) axis of each cache leaf of the dense decoder
-_SLOT_AXIS = {"k": 1, "v": 1, "lengths": 0}
-
 
 @dataclass
 class EngineConfig:
@@ -92,6 +88,11 @@ class InferenceEngine:
         B, S = ecfg.n_slots, ecfg.max_seq
         with torch.inference_mode():
             self.cache = self.model.init_cache(B, S, self.device)
+        #: the slot axis of each cache leaf: its logical "batch" axis
+        self._slot_axis = {
+            name: spec.axes.index("batch")
+            for name, spec in self.model.cache_specs(B, S).items()
+        }
 
         # slot ring bookkeeping (host side): R lanes of B/R slots each;
         # global slot id = lane * lane_slots + offset
@@ -206,7 +207,7 @@ class InferenceEngine:
         return [i for i in range(self.ecfg.n_slots) if self.slot_req[i] is None]
 
     def _insert(self, slot: int, cache1, rr: RequestResult, budget: int):
-        for name, ax in _SLOT_AXIS.items():
+        for name, ax in self._slot_axis.items():
             self.cache[name].select(ax, slot).copy_(cache1[name].select(ax, 0))
         self.slot_req[slot] = rr
         self.slot_budget[slot] = budget

@@ -6,8 +6,10 @@ on the machine with the card, where JAX is not installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Shapes are qwen2-1.5b's on the serving path; tolerances are those of
-``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``), done-prefix
+Shapes are those of the serving paths (qwen2-1.5b, rwkv6-3b,
+zamba2-1.2b) and of the reference's sweeps; tolerances are those of
+``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``; the WKV6 and SSD
+scans ``2e-4`` in fp32, the reference's own for them), done-prefix
 exact.  Each test also checks that the call went through the kernel
 (its launch count rose by one).
 """
@@ -22,14 +24,16 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.doneprefix import done_prefix_batch_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rwkv6 import rwkv6_cuda
+from repro_torch.kernels.ssd import ssd_cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _tol(dtype: str):
+def _tol(dtype: str, fp32: float = 2e-5):
     if dtype == "bfloat16":
         return dict(rtol=2e-2, atol=2e-2)
-    return dict(rtol=2e-5, atol=2e-5)
+    return dict(rtol=fp32, atol=fp32)
 
 
 def _card():
@@ -55,14 +59,33 @@ def test_cuda_rmsnorm_equals_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 2560, 4096])  # zamba2 ln, rwkv6, zamba2 ln1/ln2
+def test_cuda_rmsnorm_equals_plain_at_ssm_widths(d):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(384, d, generator=g, device=dev).bfloat16()
+    w = torch.randn(d, generator=g, device=dev)
+    for wt in (w, w.bfloat16()):  # decode's fp32 master, prefill's bf16
+        torch.testing.assert_close(
+            ops.rmsnorm(x, wt).float(),
+            ref.rmsnorm_ref(x, wt).float(),
+            **_tol("bfloat16"),
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 200, 12, 2, 128), (1, 384, 32, 32, 64)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_cuda_flash_attention_equals_plain_on_card(dtype):
+def test_cuda_flash_attention_equals_plain_on_card(shape, dtype):
+    """qwen2-1.5b's GQA prefill shape and zamba2-1.2b's shared block
+    (MHA, head dim 64)."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
     tdt = DTYPES[dtype]
-    q = torch.randn(1, 200, 12, 128, generator=g, device=dev).to(tdt)
-    k = torch.randn(1, 200, 2, 128, generator=g, device=dev).to(tdt)
-    v = torch.randn(1, 200, 2, 128, generator=g, device=dev).to(tdt)
+    B, S, H, Hkv, D = shape
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(tdt)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
     before = flash_attention_cuda.launches
     got = ops.attention(q, k, v)
     torch.cuda.synchronize()
@@ -73,14 +96,17 @@ def test_cuda_flash_attention_equals_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 2, 128), (32, 32, 64)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_cuda_decode_attention_equals_plain_on_card(dtype):
+def test_cuda_decode_attention_equals_plain_on_card(shape, dtype):
+    """qwen2-1.5b's and zamba2-1.2b's heads over 16 512-position caches."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
     tdt = DTYPES[dtype]
-    q = torch.randn(16, 12, 128, generator=g, device=dev).to(tdt)
-    k = torch.randn(16, 512, 2, 128, generator=g, device=dev).to(tdt)
-    v = torch.randn(16, 512, 2, 128, generator=g, device=dev).to(tdt)
+    H, Hkv, D = shape
+    q = torch.randn(16, H, D, generator=g, device=dev).to(tdt)
+    k = torch.randn(16, 512, Hkv, D, generator=g, device=dev).to(tdt)
+    v = torch.randn(16, 512, Hkv, D, generator=g, device=dev).to(tdt)
     lens = torch.randint(1, 513, (16,), generator=g, device=dev, dtype=torch.int32)
     lens[:3] = torch.tensor([1, 512, 600], device=dev)
     before = decode_attention_cuda.launches
@@ -105,3 +131,131 @@ def test_cuda_done_prefix_batch_equals_plain_on_card():
     torch.cuda.synchronize()
     assert done_prefix_batch_cuda.launches == before + 1
     assert torch.equal(got, ref.done_prefix_batch_ref(done, st, lim))
+
+
+def _wkv_inputs(dev, B, T, H, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    r, k, v = (0.5 * rn(B, T, H, N) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * rn(B, T, H, N) - 1.0))
+    u = 0.5 * rn(H, N)
+    s0 = 0.3 * rn(B, H, N, N)
+    tdt = DTYPES[dtype]
+    return r.to(tdt), k.to(tdt), v.to(tdt), w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,N,chunk",
+    [(1, 32, 2, 16, 8), (2, 48, 3, 32, 16), (1, 20, 1, 16, 8), (1, 384, 40, 64, 32)],
+)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_rwkv6_equals_plain_on_card(B, T, H, N, chunk, dtype):
+    """The reference's sweep (T = 20 over chunk 8 pads) and rwkv6-3b's
+    prefill (40 heads of 64, chunk 32), from a nonzero state."""
+    dev = _card()
+    r, k, v, w, u, s0 = _wkv_inputs(dev, B, T, H, N, dtype, seed=T + H)
+    before = rwkv6_cuda.launches
+    o, s = ops.rwkv6(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_cuda.launches == before + 1
+    o_ref, s_ref = ops.rwkv6(r, k, v, w, u, s0, chunk=chunk, impl="plain")
+    assert o.dtype == r.dtype and s.dtype == torch.float32
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_state_carry_split_equals_full_run():
+    dev = _card()
+    r, k, v, w, u, _ = _wkv_inputs(dev, 1, 64, 4, 64, "float32", seed=7)
+    o_full, s_full = ops.rwkv6(r, k, v, w, u, chunk=32)
+    o1, s1 = ops.rwkv6(r[:, :40], k[:, :40], v[:, :40], w[:, :40], u, chunk=32)
+    o2, s2 = ops.rwkv6(r[:, 40:], k[:, 40:], v[:, 40:], w[:, 40:], u, s1, chunk=32)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, **_tol("float32", 2e-4))
+    torch.testing.assert_close(s2, s_full, **_tol("float32", 2e-4))
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_strong_decay_stays_finite():
+    """w at its clip, exp(-e^4), over whole chunks: the kernel's pairwise
+    decay factor cannot overflow."""
+    dev = _card()
+    r, k, v, _, u, s0 = _wkv_inputs(dev, 1, 64, 2, 64, "float32", seed=8)
+    w = torch.full_like(r, float(torch.exp(-torch.exp(torch.tensor(4.0)))))
+    o, s = ops.rwkv6(r, k, v, w, u, s0, chunk=32)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    o_seq, s_seq = ref.rwkv6_scan_ref(
+        r.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), w.movedim(2, 1), u, s0
+    )
+    torch.testing.assert_close(o, o_seq.movedim(1, 2), **_tol("float32", 2e-4))
+    torch.testing.assert_close(s, s_seq, **_tol("float32", 2e-4))
+
+
+def _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = 0.5 * rn(B, T, H, P)
+    dt = 0.2 * torch.nn.functional.softplus(rn(B, T, H))
+    A = -torch.exp(0.3 * rn(H))
+    Bm, Cm = 0.5 * rn(B, T, G, N), 0.5 * rn(B, T, G, N)
+    D = 0.3 * rn(H)
+    s0 = 0.3 * rn(B, H, P, N)
+    tdt = DTYPES[dtype]
+    return x.to(tdt), dt, A, Bm.to(tdt), Cm.to(tdt), D, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,H,P,G,N,chunk",
+    [
+        (1, 32, 2, 8, 1, 16, 8),
+        (2, 24, 4, 16, 2, 8, 8),  # G = 2
+        (1, 20, 4, 16, 2, 8, 8),  # T = 20 over chunk 8 pads
+        (1, 384, 64, 64, 1, 64, 64),  # zamba2-1.2b's prefill
+        (16, 1, 64, 64, 1, 64, 64),  # zamba2-1.2b's decode step
+    ],
+)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssd_equals_plain_on_card(B, T, H, P, G, N, chunk, dtype):
+    """The kernel route (y in x's dtype, then + D x outside) against the
+    plain route (D inside, in fp32): the same function, rounded in other
+    places in bf16."""
+    dev = _card()
+    x, dt, A, Bm, Cm, D, s0 = _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed=T + H)
+    before = ssd_cuda.launches
+    y, s = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    y_ref, s_ref = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=chunk, impl="plain")
+    torch.testing.assert_close(y.float(), y_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_reads_strided_views_of_the_conv_output():
+    """x, B and C as views into one [B, T, d_in + 2N] tensor, as the
+    Mamba block passes them: no copy, the same result as dense inputs."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    H, P, N, T = 8, 64, 64, 100
+    conv = torch.randn(2, T, H * P + 2 * N, generator=g, device=dev).bfloat16()
+    x = conv[..., : H * P].reshape(2, T, H, P)
+    Bm = conv[..., H * P : H * P + N].reshape(2, T, 1, N)
+    Cm = conv[..., H * P + N :].reshape(2, T, 1, N)
+    assert not x.is_contiguous()
+    dt = 0.1 * torch.rand(2, T, H, generator=g, device=dev)
+    A = -torch.rand(H, generator=g, device=dev)
+    got = ssd_cuda(x, dt, A, Bm, Cm, torch.zeros(2, H, P, N, device=dev))
+    want = ssd_cuda(
+        x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
+        torch.zeros(2, H, P, N, device=dev),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

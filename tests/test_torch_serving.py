@@ -123,6 +123,21 @@ def test_one_layer_one_slot_engine_writes_the_slot_axis():
     assert eng.tail == eng.head == 3
 
 
+def test_one_layer_one_slot_rwkv_engine_writes_the_slot_axis():
+    """The same case for RWKV6, whose cache leaves differ in rank (``wkv``
+    ``[1, 1, H, N, N]``, ``tm_last`` ``[1, 1, 1, d]``): each leaf's slot
+    axis comes from its ``cache_specs`` name ``"batch"``."""
+    from repro_torch import configs
+
+    cfg = configs.get_tiny("rwkv6-3b").replace(n_layers=1)
+    eng = _engine(cfg=cfg, n_slots=1, max_seq=16, n_workers=1)
+    assert eng._slot_axis == {"wkv": 1, "tm_last": 1, "cm_last": 1, "lengths": 0}
+    res = eng.run(_requests(3, new_tokens=3), timeout=60)
+    assert sorted(r.rid for r in res) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 for r in res)
+    assert eng.tail == eng.head == 3
+
+
 def test_release_runs_one_batched_done_prefix_per_step(monkeypatch):
     """Every release goes through ops.done_prefix_batch with all lanes'
     rows at once, on the engine's device and through the "auto" impl."""

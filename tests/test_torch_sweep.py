@@ -294,6 +294,13 @@ def test_port_loads_neither_jax_nor_repro():
         out = eng.run([Request(rid=i, prompt=[3, 4, 5], max_new_tokens=2)
                        for i in range(2)], timeout=60)
         assert sorted(r.rid for r in out) == [0, 1] and eng.head == eng.tail
+        from repro_torch import configs
+        for name in ("rwkv6-3b", "zamba2-1.2b"):
+            eng = InferenceEngine(configs.get_tiny(name), EngineConfig(
+                n_slots=2, max_seq=12, eos_token=-1), device="cpu")
+            out = eng.run([Request(rid=i, prompt=[3, 4, 5], max_new_tokens=2)
+                           for i in range(2)], timeout=60)
+            assert sorted(r.rid for r in out) == [0, 1] and eng.head == eng.tail
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "repro")
