@@ -15,12 +15,16 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    the bound;
 3b. the attention-model kernels (RMSNorm, flash attention, decode
    attention, batched done-prefix) against their plain versions on the
-   card over the shape sweeps of ``tests/test_kernels.py`` and the
-   serving paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32 heads of 64;
+   card over the shape sweeps of ``tests/test_kernels.py``, the
+   attention kernels' edges (ragged tiles, ``q_offset`` with Sk > Sq,
+   non-causal, G 1/4/6; decode lengths 0, 1, every split and tile
+   boundary +-1, S and past S at both served shapes) and the serving
+   paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32 heads of 64;
    RMSNorm at widths 2,048, 2,560 and 4,096), fp32 ``2e-5``, bf16
    ``2e-2``, done-prefix exact; then each one's time at qwen2-1.5b's
    shape beside the plain version's, the bound and one PyTorch library
-   call's (and flash and decode attention at zamba2's shape);
+   call's (flash attention also at the 64-token prompt, flash and decode
+   attention also at zamba2's shape, each with its launch grid);
 3c. the WKV6 kernel, 3d. the SSD kernel: against their plain versions
    on the sweeps of ``tests/test_kernels.py`` (T = 20 over chunk 8, G = 2
    for SSD), a two-call state carry and the serving paths' shapes (fp32
@@ -51,8 +55,8 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    every kernel on the path, each path's counts set to 0 before it;
 7b, 9b, 10b. one decode step and one prefill of the same model: host
    time, kernel time from a ``torch.profiler`` window, the device's
-   idle share and the top kernels, and the decode step's bound (the
-   bytes it must move, from the specs);
+   idle share, the top kernels and the port's own, and the decode
+   step's bound (the bytes it must move, from the specs);
 8, 9c, 10c. one 300-token prompt through ``prefill`` and 4
    teacher-forced ``decode_step``s in fp32, with the kernels and with
    the plain versions, the logits within ``1e-3`` and the argmax equal
@@ -73,6 +77,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -88,12 +93,19 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import SweepRequest, lane_grid, run_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_cuda,
+    decode_splits,
+    group_block,
+)
 from repro_torch.kernels.doneprefix import (  # noqa: E402
     done_prefix_batch_cuda,
     done_prefix_packed_cuda,
 )
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_grid,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_cuda  # noqa: E402
 from repro_torch.kernels.ssd import ssd_cuda  # noqa: E402
@@ -548,11 +560,17 @@ def phase_rmsnorm(dev, g) -> dict:
     )
 
 
-FLASH_CASES = [  # tests/test_kernels.py:41-50, then qwen2-1.5b's prefill
+FLASH_CASES = [  # tests/test_kernels.py:41-50, then the redesign's edges
     (1, 32, 32, 4, 4, 32, True, 0),
     (2, 40, 40, 8, 2, 64, True, 0),
     (1, 16, 48, 4, 1, 32, False, 0),
     (1, 8, 72, 4, 2, 32, True, 64),
+    (1, 100, 100, 12, 2, 128, True, 0),  # G = 6, ragged last tiles
+    (1, 50, 130, 8, 2, 64, True, 80),  # G = 4, Sk > Sq, q_offset > 0
+    (2, 70, 45, 4, 4, 128, False, 0),  # non-causal, Sk < Sq
+    (1, 33, 97, 6, 1, 32, False, 0),  # non-causal, G = 6
+    (1, 64, 64, 12, 2, 128, True, 0),  # qwen2-1.5b's shortest prompt
+    (3, 17, 17, 2, 1, 64, True, 0),  # one query past a 16-row tile
 ]
 
 
@@ -578,47 +596,54 @@ def phase_flash(dev, g) -> dict:
         what = f"flash {dt} {(B, Sq, Sk, h, hkv, d, causal, qo)}"
         err = max(err, _close(what, got, want, _tol(dt)))
     print(f"phase 3b: flash_attention == plain on {len(cases)} cases (max err {err})")
-    S = 384
-    q = torch.randn(1, S, H, D, generator=g, device=dev).bfloat16()
-    k = torch.randn(1, S, Hkv, D, generator=g, device=dev).bfloat16()
-    v = torch.randn(1, S, Hkv, D, generator=g, device=dev).bfloat16()
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    timed = _time3(
-        f"flash_attention B=1 Sq=Sk={S} H={H} Hkv={Hkv} D={D} causal bf16",
-        lambda: flash_attention_cuda(q, k, v, causal=True),
-        lambda: kref.attention_ref(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True
-        ),
-    )
-    moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out
-    pairs = H * S * (S + 1) // 2  # admissible (query, key) pairs, causal
-    bound = _bound(moved, 4 * D * pairs, BF16_OPS_PER_S)
-    # zamba2-1.2b's shared block: MHA, head dim 64 (printed, for PERF.md)
-    h, _, d = zshape
-    zq, zk, zv = (
-        torch.randn(1, S, h, d, generator=g, device=dev).bfloat16() for _ in "qkv"
-    )
-    zt = [t.transpose(1, 2).contiguous() for t in (zq, zk, zv)]
-    zb = _bound(8 * zq.numel(), 4 * d * h * S * (S + 1) // 2, BF16_OPS_PER_S)
-    _time3(
-        f"flash_attention B=1 Sq=Sk={S} H={h} Hkv={h} D={d} causal bf16 "
-        f"({ZAMBA}; bound {zb[0]:.6f} ms, {zb[1]})",
-        lambda: flash_attention_cuda(zq, zk, zv, causal=True),
-        lambda: kref.attention_ref(zq, zk, zv, causal=True),
-        lambda: F.scaled_dot_product_attention(*zt, is_causal=True),
-    )
+    # timed: qwen2-1.5b's longest and shortest prompts, then zamba2-1.2b's
+    # shared block (MHA, head dim 64); only the first goes to the JSON line
+    timed = None
+    for S, h, hkv, d, name in (
+        (PROMPT_LENS[1], H, Hkv, D, MODEL),
+        (PROMPT_LENS[0], H, Hkv, D, MODEL),
+        (PROMPT_LENS[1], *zshape, ZAMBA),
+    ):
+        q = torch.randn(1, S, h, d, generator=g, device=dev).bfloat16()
+        k = torch.randn(1, S, hkv, d, generator=g, device=dev).bfloat16()
+        v = torch.randn(1, S, hkv, d, generator=g, device=dev).bfloat16()
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out
+        pairs = h * S * (S + 1) // 2  # admissible (query, key) pairs, causal
+        bound = _bound(moved, 4 * d * pairs, BF16_OPS_PER_S)
+        warps, grid = flash_grid(1, S, h, torch.bfloat16)
+        got = _time3(
+            f"flash_attention B=1 Sq=Sk={S} H={h} Hkv={hkv} D={d} causal bf16 "
+            f"({name}; grid {grid} of {warps} warps = {grid[0] * grid[1]} blocks; "
+            f"bound {bound[0]:.6f} ms, {bound[1]})",
+            lambda: flash_attention_cuda(q, k, v, causal=True),
+            lambda: kref.attention_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=hkv != h
+            ),
+        )
+        if timed is None:
+            timed, entry_bound = got, bound
     return _entry(
         "flash_attention",
         "flash_attention.cu",
         "src/repro/kernels/flash_attention.py:35",
         err,
         timed,
-        bound,
+        entry_bound,
     )
 
 
 DECODE_CASES = [(2, 4, 4, 32, 40), (3, 8, 2, 64, 100), (1, 4, 1, 32, 513)]
+
+
+def _decode_grid(B: int, Hkv: int, S: int, G: int) -> str:
+    """The decode launch's grid: splits x (KV head x head block) x slots,
+    and the merge's blocks when there is more than one split."""
+    n, per = decode_splits(B, Hkv, S, G)
+    y = Hkv * -(-G // group_block(G))
+    merge = f", merge grid {B * Hkv * G}" if n > 1 else ", no merge"
+    return f"grid ({n}, {y}, {B}) = {n * y * B} blocks, {n} splits of {per} keys{merge}"
 
 
 def phase_decode(dev, g) -> dict:
@@ -633,19 +658,37 @@ def phase_decode(dev, g) -> dict:
         for h, hkv, d in ((H, Hkv, D), zshape)
         for dt in (torch.float32, torch.bfloat16)
     ]
+    # the split edges at both served shapes (B * Hkv = 32: 8 splits of 64
+    # keys; 512: one split of 8 tiles): 0, 1, every tile boundary -1, 0
+    # and +1, S - 1, S and past S, between random lengths
+    edges = [0, 1, S - 1, S, S + 88]
+    edges += [e + i for e in range(64, S, 64) for i in (-1, 0, 1)]
+    for at in range(0, len(edges), B // 2):
+        part = torch.tensor(edges[at : at + B // 2], device=dev, dtype=torch.int32)
+        cases += [
+            (B, h, hkv, d, S, dt, part)
+            for h, hkv, d in ((H, Hkv, D), zshape)
+            for dt in (torch.float32, torch.bfloat16)
+        ]
     err = 0.0
-    for b, h, hkv, d, s, dt in cases:
+    for b, h, hkv, d, s, dt, *part in cases:
         q = torch.randn(b, h, d, generator=g, device=dev).to(dt)
         k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dt)
         v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dt)
         lens = torch.randint(1, s + 1, (b,), generator=g, device=dev, dtype=torch.int32)
-        if b == B:  # the edges: one key, odd, S - 1, S and past S
-            edges = torch.tensor([1, 37, S - 1, S, S + 88], device=dev)[:b]
-            lens[: len(edges)] = edges
+        if part:
+            lens[1 : 1 + 2 * len(part[0]) : 2] = part[0]
+        elif b == B:  # the edges: one key, odd, S - 1, S and past S
+            lens[:5] = torch.tensor([1, 37, S - 1, S, S + 88], device=dev)
         got = decode_attention_cuda(q, k, v, lens)
         want = kref.decode_attention_ref(q, k, v, lens)
+        # a length of 0 gives 0 (the plain softmax over no key gives NaN)
+        want = torch.where((lens > 0)[:, None, None], want, torch.zeros_like(want))
         err = max(err, _close(f"decode {dt} {(b, h, hkv, d, s)}", got, want, _tol(dt)))
-    print(f"phase 3b: decode_attention == plain on {len(cases)} cases (max err {err})")
+    print(
+        f"phase 3b: decode_attention == plain on {len(cases)} cases, {len(edges)} "
+        f"edge lengths at both served shapes (max err {err})"
+    )
     # timed with every slot's cache full: the whole [16, 512] cache is valid
     q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
     k = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
@@ -655,7 +698,8 @@ def phase_decode(dev, g) -> dict:
     kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
     mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None, :]
     timed = _time3(
-        f"decode_attention B={B} S={S} H={H} Hkv={Hkv} D={D} full caches bf16",
+        f"decode_attention B={B} S={S} H={H} Hkv={Hkv} D={D} full caches bf16 "
+        f"({MODEL}; {_decode_grid(B, Hkv, S, H // Hkv)})",
         lambda: decode_attention_cuda(q, k, v, lens),
         lambda: kref.decode_attention_ref(q, k, v, lens),
         lambda: F.scaled_dot_product_attention(
@@ -674,7 +718,7 @@ def phase_decode(dev, g) -> dict:
     zb = _bound(zmoved, 4 * d * h * valid, BF16_OPS_PER_S)
     _time3(
         f"decode_attention B={B} S={S} H={h} Hkv={h} D={d} full caches bf16 "
-        f"({ZAMBA}; bound {zb[0]:.6f} ms, {zb[1]})",
+        f"({ZAMBA}; {_decode_grid(B, h, S, 1)}; bound {zb[0]:.6f} ms, {zb[1]})",
         lambda: decode_attention_cuda(zq, zk, zv, lens),
         lambda: kref.decode_attention_ref(zq, zk, zv, lens),
         lambda: F.scaled_dot_product_attention(
@@ -981,6 +1025,49 @@ def _device_us(prof) -> tuple:
     return sum(k[0] for k in kernels), kernels
 
 
+def _demangle_kernel(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled name: the identifier
+    ending in ``_kernel`` whose length prefix fits, then its template
+    arguments (bf16, float and integers), if any."""
+    for m in re.finditer(r"\d+", mangled):
+        # the length prefix may follow digits of a hash: try each suffix
+        ends = [m.end() + int(m.group(0)[i:]) for i in range(len(m.group(0)))]
+        end = next((e for e in ends if mangled[:e].endswith("_kernel")), None)
+        if end is None:
+            continue
+        name = mangled[m.end() : end]
+        targs = re.match(r"I(.*?E)Ev", mangled[end:])
+        if targs:
+            args = re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", targs.group(1))
+            name += "<" + ", ".join(
+                "bf16" if a.group(0)[0] == "1" else a.group(1) or "float"
+                for a in args
+            ) + ">"
+        return name
+    return mangled
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: the kernel,
+    its registers and its spill stores and loads."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _demangle_kernel(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {spill}")
+    return out
+
+
+def _kernel_name(key: str) -> str:
+    """The bare function name of a profiler key such as
+    ``void (anonymous namespace)::ssd_kernel<float>(float const*, ...)``."""
+    return key.split("::")[1].split("<")[0].split("(")[0]
+
+
 def decode_step_bytes(name: str, n: int) -> tuple:
     """Bytes one decode step of ``name`` must move with every slot at
     ``n`` positions, from the specs alone (nothing is allocated): each
@@ -1077,10 +1164,16 @@ def phase_breakdown(dev, name: str, params) -> None:
             )
         else:
             idle, shown = "not measured (the profiler saw no kernel)", ""
+        # the port's own kernels (csrc/'s anonymous namespace), ranked or not
+        ours = [k for k in kernels if k[2].startswith("void (anonymous namespace)::")]
+        ours = ", ".join(
+            f"{_kernel_name(k[2])} x{k[1] // 5} {k[0] / 5:.1f} us" for k in ours
+        )
         print(
             f"phase {ph}b: {name} {what}: host {host_ms:.4f} ms/call, kernels "
             f"{dev_ms:.4f} ms/call, {len(kernels)} kernel names, idle share "
-            f"{idle}; top kernels per call: {shown}"
+            f"{idle}; top kernels per call: {shown}; the port's kernels per "
+            f"call: {ours or None}"
         )
 
 
@@ -1213,7 +1306,8 @@ def main() -> int:
     built_s = time.perf_counter() - t0
     print(f"phase 2: built {sorted(_build.SOURCES)} in {built_s:.2f} s")
     for name in sorted(_build.SOURCES):
-        print(f"phase 2: {name}: {_build.build_log(name).strip()}")
+        for line in _ptxas_summary(_build.build_log(name)):
+            print(f"phase 2: {name}: {line}")
     kernel = phase_kernel(dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
     model_kernels = [

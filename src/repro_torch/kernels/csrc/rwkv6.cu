@@ -199,9 +199,7 @@ int launch(const void* r, const void* k, const void* v, const float* w,
   const int Vb = N < 16 ? N : 16;
   if (T_len > 0 && C > T_len) C = T_len;  // one ragged chunk: no more smem
   const size_t bytes = smem_floats(C, N, Vb) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  cudaError_t err = allow_dynamic_smem(rwkv6_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, N / Vb);
   rwkv6_kernel<T><<<grid, kThreads, bytes, stream>>>(

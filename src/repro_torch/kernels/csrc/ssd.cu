@@ -202,9 +202,7 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
     Pb /= 2;
   if (T_len > 0 && C > T_len) C = T_len;  // one ragged chunk: no more smem
   const size_t bytes = smem_floats(C, N, Pb) * sizeof(float);
-  err = cudaFuncSetAttribute(ssd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  err = allow_dynamic_smem(ssd_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, P / Pb);
   ssd_kernel<T><<<grid, kThreads, bytes, stream>>>(

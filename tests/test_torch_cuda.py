@@ -118,6 +118,83 @@ def test_cuda_decode_attention_equals_plain_on_card(shape, dtype):
     )
 
 
+#: flash edges: (B, Sq, Sk, H, Hkv, D, causal, q_offset).  Sq and Sk off
+#: the 16-row and 64-key tiles, queries placed past the keys' start
+#: (Sk > Sq), non-causal, D 32/64/128, G 1/4/6, and the 64-token prompt
+FLASH_EDGES = [
+    (1, 100, 100, 12, 2, 128, True, 0),  # G = 6, ragged last tiles
+    (1, 8, 72, 4, 2, 32, True, 64),  # the reference sweep's q_offset case
+    (1, 50, 130, 8, 2, 64, True, 80),  # G = 4, Sk > Sq, q_offset > 0
+    (2, 70, 45, 4, 4, 128, False, 0),  # non-causal, G = 1, Sk < Sq
+    (1, 33, 97, 6, 1, 32, False, 0),  # non-causal, G = 6
+    (1, 64, 64, 12, 2, 128, True, 0),  # qwen2-1.5b's shortest prompt
+    (1, 200, 200, 16, 4, 64, True, 0),  # G = 4, two warps per block
+    (3, 17, 17, 2, 1, 64, True, 0),  # one query past a 16-row tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_EDGES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_flash_attention_edges_equal_plain(case, dtype):
+    dev = _card()
+    B, Sq, Sk, H, Hkv, D, causal, qo = case
+    g = torch.Generator(device=dev).manual_seed(Sq * 131 + Sk)
+    tdt = DTYPES[dtype]
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(tdt)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(tdt)
+    v = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(tdt)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=qo)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, q_offset=qo)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def _edge_lengths(S: int) -> list:
+    """0, 1, each 64-key tile boundary (every split boundary is one) -1,
+    0 and +1, S - 1, S and S + 88 (an idle slot past the cache)."""
+    lens = [0, 1, S - 1, S, S + 88]
+    for edge in range(64, S, 64):
+        lens += [edge - 1, edge, edge + 1]
+    return lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 12, 2, 128), (16, 32, 32, 64)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_decode_attention_edges_equal_plain(shape, dtype):
+    """B * Hkv = 32 (qwen2-1.5b: 8 splits of 64 keys) and 512 (zamba2-
+    1.2b: one split): every edge length, mixed with random ones over the
+    16 slots; a length of 0 gives exactly 0 (the plain version's softmax
+    over no key gives NaN)."""
+    dev = _card()
+    B, H, Hkv, D = shape
+    S = 512
+    g = torch.Generator(device=dev).manual_seed(H)
+    tdt = DTYPES[dtype]
+    edges = _edge_lengths(S)
+    for at in range(0, len(edges), B // 2):
+        q = torch.randn(B, H, D, generator=g, device=dev).to(tdt)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
+        lens = torch.randint(
+            1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32
+        )
+        part = torch.tensor(edges[at : at + B // 2], device=dev, dtype=torch.int32)
+        lens[1 : 1 + 2 * len(part) : 2] = part  # edges between random slots
+        before = decode_attention_cuda.launches
+        got = decode_attention_cuda(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert decode_attention_cuda.launches == before + 1
+        want = ref.decode_attention_ref(q, k, v, lens).float()
+        empty = (lens == 0)[:, None, None]
+        assert torch.equal(got.float() * empty, torch.zeros_like(want))
+        want = torch.where(empty, torch.zeros_like(want), want)
+        torch.testing.assert_close(got.float(), want, **_tol(dtype))
+
+
 @pytest.mark.cuda
 def test_cuda_done_prefix_batch_equals_plain_on_card():
     dev = _card()
