@@ -9,7 +9,8 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (seven
-   sources, one ``nvcc`` each, all at once);
+   sources, one ``nvcc`` each, all at once), one ptxas line (registers,
+   spills) per kernel;
 3. the packed done-prefix kernel against its plain PyTorch version on
    the card (exact equality), plus its time, the plain version's and
    the bound;
@@ -25,13 +26,21 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    shape beside the plain version's, the bound and one PyTorch library
    call's (flash attention also at the 64-token prompt, flash and decode
    attention also at zamba2's shape, each with its launch grid);
-3c. the WKV6 kernel, 3d. the SSD kernel: against their plain versions
-   on the sweeps of ``tests/test_kernels.py`` (T = 20 over chunk 8, G = 2
-   for SSD), a two-call state carry and the serving paths' shapes (fp32
-   ``2e-4``, the reference's tolerance for the scans; bf16 ``2e-2``),
-   then each one's time at its prefill shape (B = 1, T = 384, all heads;
-   SSD also at a decode step) beside the plain version's and the bound;
-   no single PyTorch call computes either scan;
+3c. the WKV6 kernels, 3d. the SSD kernels (three chained passes a call,
+   SSD's one-token route a kernel of its own): against their plain
+   versions on the sweeps of ``tests/test_kernels.py`` (T = 20 over
+   chunk 8, G = 2 for SSD), ragged sequences across the 64-token chunk
+   tile's and 16-token sub-chunks' edges, WKV6 with w at its clip
+   exp(-e^4) (against the sequential oracle), SSD's one-token route at 1
+   and 16 slots with G = 1 and 2 on strided views of a conv output, a
+   two-call state carry (SSD's through both routes) and the serving
+   paths' shapes (fp32 ``2e-4``, the reference's tolerance for the
+   scans; bf16 ``2e-2``), then each one's time at its prefill shape
+   (B = 1, T = 384, all heads; SSD also at a decode step) beside the
+   plain version's, both bounds (fp32 scalar and bf16 tensor rate; the
+   bf16 route's, on the tensor cores, goes to the JSON line), the launch
+   grids, the workspace bytes, and what each pass adds to a call (from
+   a profiler trace); no single PyTorch call computes either scan;
 4. the main path at the repo's full sweep size -- the forwarder grid
    of ``benchmarks/jax_sweep.py`` (batch x rate x deschedule_prob x 14
    seeds = 1,008 lanes per policy, all five policies fused, 2,000
@@ -55,8 +64,9 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    every kernel on the path, each path's counts set to 0 before it;
 7b, 9b, 10b. one decode step and one prefill of the same model: host
    time, kernel time from a ``torch.profiler`` window, the device's
-   idle share, the top kernels and the port's own, and the decode
-   step's bound (the bytes it must move, from the specs);
+   idle share, the top kernels and the port's own (a scan's passes
+   summed into one figure per call), and the decode step's bound (the
+   bytes it must move, from the specs);
 8, 9c, 10c. one 300-token prompt through ``prefill`` and 4
    teacher-forced ``decode_step``s in fp32, with the kernels and with
    the plain versions, the logits within ``1e-3`` and the argmax equal
@@ -107,8 +117,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_grid,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6 import rwkv6_cuda  # noqa: E402
-from repro_torch.kernels.ssd import ssd_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plan  # noqa: E402
+from repro_torch.kernels.ssd import ssd_cuda, ssd_plan  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.spec import init_params, spec_map  # noqa: E402
 from repro_torch.serving import EngineConfig, InferenceEngine, Request  # noqa: E402
@@ -802,16 +812,96 @@ def _wkv_inputs(B, T, H, N, dtype, g, dev):
 
 
 RWKV_CASES = [(1, 32, 2, 16, 8), (2, 48, 3, 32, 16), (1, 20, 1, 16, 8)]  # :104
+#: ragged prompts: below the kernels' 64-token chunk tile, on and across
+#: its 16-token sub-chunk edges, and over several chunks
+RAGGED_T = (2, 5, 15, 16, 17, 33, 47, 63, 65, 130)
+
+
+def _ours(key: str) -> bool:
+    """A kernel of csrc/: its name starts in the sources' top-level
+    anonymous namespace (a template kernel's with ``void``)."""
+    return key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::"))
+
+
+def _pass_split(fn, first: str, n: int = 20) -> str:
+    """What each of the port's kernels that ``fn`` launches adds to one
+    call, from the kernels' start and end times in a torch.profiler
+    trace of ``n`` calls: the first kernel's own span, then for each
+    later one its end less the end of the one before (the passes of a
+    scan overlap, a programmatic dependent starting before its
+    predecessor ends), and the whole chain; medians over the calls.  A
+    call starts at a kernel whose name starts with ``first``; calls the
+    window cut short are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = _build.BUILD_DIR / "pass_split_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ks = sorted(
+        (e for e in events if e.get("cat") == "kernel" and _ours(e.get("name", ""))),
+        key=lambda e: e["ts"],
+    )
+    calls = []
+    for e in ks:
+        if _kernel_name(e["name"]).startswith(first) or not calls:
+            calls.append([])
+        calls[-1].append(e)
+    per = max((len(c) for c in calls), default=0)
+    calls = [c for c in calls if len(c) == per]
+    if not calls:
+        return f"not measured ({len(ks)} kernels in {n} calls)"
+    names = [_kernel_name(e["name"]) for e in calls[0]]
+    def end(e):
+        return e["ts"] + e["dur"]
+
+    first = [c[0]["dur"] for c in calls]
+    adds = [[end(c[j]) - end(c[j - 1]) for c in calls] for j in range(1, per)]
+    chain = [end(c[-1]) - c[0]["ts"] for c in calls]
+    spans = [
+        (np.median([c[j]["ts"] - c[0]["ts"] for c in calls]),
+         np.median([end(c[j]) - c[0]["ts"] for c in calls]))
+        for j in range(per)
+    ]
+    parts = [f"{names[0]} {np.median(first):.2f} us"]
+    parts += [f"{nm} +{np.median(a):.2f} us" for nm, a in zip(names[1:], adds)]
+    at = ", ".join(f"{nm} {a:.2f}-{b:.2f}" for nm, (a, b) in zip(names, spans))
+    return ", ".join(parts) + f" (chain {np.median(chain):.2f} us; spans in us: {at})"
+
+
+def _scan_bounds(moved: int, flops: int) -> tuple:
+    """(fp32-scalar bound, bf16-tensor bound), each (ms, by, bytes): the
+    bf16 route runs its products on the tensor cores, so its bound is
+    the second."""
+    return _bound(moved, flops, SCALAR_OPS_PER_S), _bound(moved, flops, BF16_OPS_PER_S)
+
+
+def _fmt_bounds(b32, b16) -> str:
+    return (
+        f"bound fp32-scalar {b32[0] * 1e3:.4f} us ({b32[1]}), bf16-tensor "
+        f"{b16[0] * 1e3:.4f} us ({b16[1]}), {b16[2]} bytes"
+    )
 
 
 def phase_rwkv6(dev, g) -> dict:
-    """Phase 3c: the WKV6 kernel against its plain version: the shape
-    sweep of tests/test_kernels.py (T = 20 over chunk 8 pads), a two-call
-    state carry, and rwkv6-3b's prefill shape, fp32 and bf16."""
+    """Phase 3c: the WKV6 kernels against their plain version: the shape
+    sweep of tests/test_kernels.py (T = 20 over chunk 8 pads), ragged
+    prompts across the chunk tile's and sub-chunks' edges, w at its clip
+    exp(-e^4) (against the sequential oracle), a two-call state carry,
+    and rwkv6-3b's prefill shape, fp32 and bf16."""
     cfg = configs.get(RWKV)
     H, N, C, T = cfg.d_model // 64, 64, cfg.rwkv_chunk, PROMPT_LENS[1]
+    cases = RWKV_CASES + [(1, T, H, N, C)]
+    cases += [(2, t, 3, N, C) for t in RAGGED_T] + [(1, 33, 2, 16, 8)]
     err, n = 0.0, 0
-    for B_, T_, H_, N_, C_ in RWKV_CASES + [(1, T, H, N, C)]:
+    for B_, T_, H_, N_, C_ in cases:
         for dt in (torch.float32, torch.bfloat16):
             r, k, v, w, u, s0 = _wkv_inputs(B_, T_, H_, N_, dt, g, dev)
             got = rwkv6_cuda(r, k, v, w, u, s0, chunk=C_)
@@ -820,31 +910,51 @@ def phase_rwkv6(dev, g) -> dict:
             for i, part in enumerate(("o", "state")):
                 err = max(err, _close(f"{what} {part}", got[i], want[i], _scan_tol(dt)))
             n += 1
-    # two calls carrying the state == one plain call over the whole prompt
-    r, k, v, w, u, s0 = _wkv_inputs(1, T, H, N, torch.float32, g, dev)
-    h = T // 2 + 5
-    o1, s1 = rwkv6_cuda(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0, chunk=C)
-    parts = [t[:, h:].contiguous() for t in (r, k, v, w)]
-    o2, s2 = rwkv6_cuda(*parts, u, s1, chunk=C)
-    o_ref, s_ref = ops.rwkv6(r, k, v, w, u, s0, chunk=C, impl="plain")
-    err = max(err, _close("rwkv6 carry o", torch.cat([o1, o2], 1), o_ref, SCAN_TOL))
-    err = max(err, _close("rwkv6 carry state", s2, s_ref, SCAN_TOL))
-    print(f"phase 3c: rwkv6 == plain on {n} cases and a two-call carry (max err {err})")
+    clip = float(np.exp(-np.exp(4.0)))
+    for dt in (torch.float32, torch.bfloat16):
+        # w at its clip: the plain chunked form overflows there, so the
+        # sequential oracle is the reference
+        r, k, v, w, u, s0 = _wkv_inputs(1, 100, 2, N, dt, g, dev)
+        w = torch.full_like(w, clip)
+        got = rwkv6_cuda(r, k, v, w, u, s0, chunk=C)
+        o_seq, s_seq = kref.rwkv6_scan_ref(
+            *(t.movedim(2, 1) for t in (r, k, v, w)), u, s0
+        )
+        what = f"rwkv6 {dt} w = exp(-e^4)"
+        err = max(err, _close(f"{what} o", got[0], o_seq.movedim(1, 2), _scan_tol(dt)))
+        err = max(err, _close(f"{what} state", got[1], s_seq, _scan_tol(dt)))
+        # two calls carrying the state == one plain call over the prompt
+        r, k, v, w, u, s0 = _wkv_inputs(1, T, H, N, dt, g, dev)
+        h = T // 2 + 5
+        o1, s1 = rwkv6_cuda(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0, chunk=C)
+        parts = [t[:, h:].contiguous() for t in (r, k, v, w)]
+        o2, s2 = rwkv6_cuda(*parts, u, s1, chunk=C)
+        o_ref, s_ref = ops.rwkv6(r, k, v, w, u, s0, chunk=C, impl="plain")
+        o12 = torch.cat([o1, o2], 1)
+        err = max(err, _close(f"rwkv6 {dt} carry o", o12, o_ref, _scan_tol(dt)))
+        err = max(err, _close(f"rwkv6 {dt} carry state", s2, s_ref, _scan_tol(dt)))
+    print(
+        f"phase 3c: rwkv6 == plain on {n} cases ({len(RAGGED_T) + 1} ragged), w at "
+        f"its clip and a two-call carry, fp32 and bf16 (max err {err})"
+    )
     # timed at rwkv6-3b's prefill: bf16 r/k/v, fp32 w, u and state
     r, k, v, w, u, s0 = _wkv_inputs(1, T, H, N, torch.bfloat16, g, dev)
+    plan = rwkv6_plan(1, T, H, N)
+    moved = 4 * r.numel() * 2 + w.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4
+    b32, b16 = _scan_bounds(moved, _wkv_flops(T, C, N, H))
     timed = _time3(
-        f"rwkv6 B=1 T={T} H={H} N={N} chunk {C} bf16",
+        f"rwkv6 B=1 T={T} H={H} N={N} chunk {C} bf16 ({_fmt_bounds(b32, b16)}; "
+        f"grids {plan.state_grid}, {plan.pass_grid}, {plan.out_grid}; workspace "
+        f"{plan.workspace_bytes} bytes)",
         lambda: rwkv6_cuda(r, k, v, w, u, s0, chunk=C),
         lambda: ops.rwkv6(r, k, v, w, u, s0, chunk=C, impl="plain"),
         None,
         phase="3c",
     )
-    moved = 4 * r.numel() * 2 + w.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4
-    bound = _bound(moved, _wkv_flops(T, C, N, H), SCALAR_OPS_PER_S)
+    split = _pass_split(lambda: rwkv6_cuda(r, k, v, w, u, s0, chunk=C), "wkv_state")
+    print(f"phase 3c: rwkv6 per pass (profiler, per call): {split}")
     replaces = "src/repro/kernels/rwkv6.py:29"
-    entry = _entry("rwkv6", "rwkv6.cu", replaces, err, timed, bound)
-    print(f"phase 3c: rwkv6 bound {bound[0]:.6f} ms ({bound[1]}, {moved} bytes)")
-    return entry
+    return _entry("rwkv6", "rwkv6.cu", replaces, err, timed, b16)
 
 
 def _ssd_inputs(B, T, H, P, G, N, dtype, g, dev):
@@ -859,20 +969,37 @@ def _ssd_inputs(B, T, H, P, G, N, dtype, g, dev):
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D, s0
 
 
+def _conv_views(B, T, H, P, G, N, dtype, g, dev):
+    """x, B and C as views into one [B, T, H P + 2 G N] conv output, as
+    the Mamba block passes them."""
+    conv = (0.5 * torch.randn(B, T, H * P + 2 * G * N, generator=g, device=dev)).to(
+        dtype
+    )
+    x = conv[..., : H * P].reshape(B, T, H, P)
+    Bm = conv[..., H * P : H * P + G * N].reshape(B, T, G, N)
+    Cm = conv[..., H * P + G * N :].reshape(B, T, G, N)
+    return x, Bm, Cm
+
+
 SSD_CASES = [(1, 32, 2, 8, 1, 16, 8), (2, 24, 4, 16, 2, 8, 8), (1, 20, 4, 16, 2, 8, 8)]
 
 
 def phase_ssd(dev, g) -> dict:
     """Phase 3d: the SSD kernel route (y in x's dtype, then + D x) against
     the plain route (D inside, fp32): the sweep of tests/test_kernels.py
-    (G = 2, T = 20 over chunk 8), a two-call state carry, and
-    zamba2-1.2b's prefill and decode shapes, fp32 and bf16."""
+    (G = 2, T = 20 over chunk 8), ragged sequences across the chunk
+    tile's edges with G = 2, the one-token route at B = 1 and 16 with
+    G = 1 and 2 on strided views of a conv output, a state carried
+    through both routes, and zamba2-1.2b's prefill and decode shapes,
+    fp32 and bf16."""
     cfg = configs.get(ZAMBA)
     P, N, C, T = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk, PROMPT_LENS[1]
     H = cfg.ssm_expand * cfg.d_model // P
-    path = [(1, T, H, P, 1, N, C), (ENGINE["n_slots"], 1, H, P, 1, N, C)]
+    B16 = ENGINE["n_slots"]
+    path = [(1, T, H, P, 1, N, C), (B16, 1, H, P, 1, N, C)]
+    ragged = [(2, t, 8, P, 2, N, C) for t in RAGGED_T]
     err, n = 0.0, 0
-    for B_, T_, H_, P_, G_, N_, C_ in SSD_CASES + path:
+    for B_, T_, H_, P_, G_, N_, C_ in SSD_CASES + path + ragged:
         for dt in (torch.float32, torch.bfloat16):
             x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(B_, T_, H_, P_, G_, N_, dt, g, dev)
             got = ops.ssd(x, d_t, A, Bm, Cm, D, s0, chunk=C_, impl="cuda")
@@ -881,38 +1008,65 @@ def phase_ssd(dev, g) -> dict:
             for i, part in enumerate(("y", "state")):
                 err = max(err, _close(f"{what} {part}", got[i], want[i], _scan_tol(dt)))
             n += 1
-    x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(1, T, H, P, 1, N, torch.float32, g, dev)
-    h = T // 2 + 5
-    y1, s1 = ssd_cuda(x[:, :h], d_t[:, :h], A, Bm[:, :h], Cm[:, :h], s0, chunk=C)
-    rest = (x[:, h:], d_t[:, h:].contiguous(), A, Bm[:, h:], Cm[:, h:])
-    y2, s2 = ssd_cuda(*rest, s1, chunk=C)
-    no_d = torch.zeros_like(D)  # ssd_cuda leaves the D-skip to ops.ssd
-    y_ref, s_ref = ops.ssd(x, d_t, A, Bm, Cm, no_d, s0, chunk=C, impl="plain")
-    err = max(err, _close("ssd carry y", torch.cat([y1, y2], 1), y_ref, SCAN_TOL))
-    err = max(err, _close("ssd carry state", s2, s_ref, SCAN_TOL))
-    print(f"phase 3d: ssd == plain on {n} cases and a two-call carry (max err {err})")
+    for B_ in (1, B16):  # the one-token route on strided views
+        for G_ in (1, 2):
+            for dt in (torch.float32, torch.bfloat16):
+                x, Bm, Cm = _conv_views(B_, 1, H, P, G_, N, dt, g, dev)
+                _, d_t, A, _, _, D, s0 = _ssd_inputs(B_, 1, H, P, G_, N, dt, g, dev)
+                got = ops.ssd(x, d_t, A, Bm, Cm, D, s0, chunk=C, impl="cuda")
+                dense = (x.contiguous(), d_t, A, Bm.contiguous(), Cm.contiguous())
+                want = ops.ssd(*dense, D, s0, chunk=C, impl="plain")
+                what = f"ssd {dt} one token B={B_} G={G_} views"
+                tol = _scan_tol(dt)
+                for i, part in enumerate(("y", "state")):
+                    err = max(err, _close(f"{what} {part}", got[i], want[i], tol))
+                n += 1
+    for dt in (torch.float32, torch.bfloat16):
+        # a ragged prefill, three one-token calls and the rest, carrying
+        # the state, == one plain call over the whole sequence
+        x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(2, T, 8, P, 2, N, dt, g, dev)
+        ys, s = [], s0
+        for lo, hi in ((0, 70), (70, 71), (71, 72), (72, 73), (73, T)):
+            xs, bs, cs = (t[:, lo:hi] for t in (x, Bm, Cm))
+            y, s = ssd_cuda(xs, d_t[:, lo:hi].contiguous(), A, bs, cs, s, chunk=C)
+            ys.append(y)
+        no_d = torch.zeros_like(D)  # ssd_cuda leaves the D-skip to ops.ssd
+        y_ref, s_ref = ops.ssd(x, d_t, A, Bm, Cm, no_d, s0, chunk=C, impl="plain")
+        y = torch.cat(ys, 1)
+        err = max(err, _close(f"ssd {dt} carry y", y, y_ref, _scan_tol(dt)))
+        err = max(err, _close(f"ssd {dt} carry state", s, s_ref, _scan_tol(dt)))
+    print(
+        f"phase 3d: ssd == plain on {n} cases ({len(ragged)} ragged, 8 one-token on "
+        f"views) and a carry through both routes, fp32 and bf16 (max err {err})"
+    )
     # timed at zamba2-1.2b's prefill: bf16 x/B/C, fp32 dt, A and state
     x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(1, T, H, P, 1, N, torch.bfloat16, g, dev)
+    plan = ssd_plan(1, T, H, 1, P, N)
+    moved = 2 * x.numel() * 2 + d_t.numel() * 4 + A.numel() * 4
+    moved += 2 * Bm.numel() * 2 + 2 * s0.numel() * 4  # B, C by group; both states
+    b32, b16 = _scan_bounds(moved, _ssd_flops(T, C, N, P, H))
     timed = _time3(
-        f"ssd B=1 T={T} H={H} P={P} N={N} G=1 chunk {C} bf16",
+        f"ssd B=1 T={T} H={H} P={P} N={N} G=1 chunk {C} bf16 ({_fmt_bounds(b32, b16)}; "
+        f"grids {plan.state_grid}, {plan.pass_grid}, {plan.out_grid}, "
+        f"{plan.heads_per_block} heads per output block; workspace "
+        f"{plan.workspace_bytes} bytes)",
         lambda: ssd_cuda(x, d_t, A, Bm, Cm, s0, chunk=C),
         lambda: ops.ssd(x, d_t, A, Bm, Cm, D, s0, chunk=C, impl="plain"),
         None,
         phase="3d",
     )
-    moved = 2 * x.numel() * 2 + d_t.numel() * 4 + A.numel() * 4
-    moved += 2 * Bm.numel() * 2 + 2 * s0.numel() * 4  # B, C by group; both states
-    bound = _bound(moved, _ssd_flops(T, C, N, P, H), SCALAR_OPS_PER_S)
-    entry = _entry("ssd", "ssd.cu", "src/repro/kernels/ssd.py:29", err, timed, bound)
-    print(f"phase 3d: ssd bound {bound[0]:.6f} ms ({bound[1]}, {moved} bytes)")
+    split = _pass_split(lambda: ssd_cuda(x, d_t, A, Bm, Cm, s0, chunk=C), "ssd_state")
+    print(f"phase 3d: ssd prefill per pass (profiler, per call): {split}")
+    entry = _entry("ssd", "ssd.cu", "src/repro/kernels/ssd.py:29", err, timed, b16)
     # the decode step's call: one token for each of the 16 slots
-    B = ENGINE["n_slots"]
-    x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(B, 1, H, P, 1, N, torch.bfloat16, g, dev)
+    x, d_t, A, Bm, Cm, D, s0 = _ssd_inputs(B16, 1, H, P, 1, N, torch.bfloat16, g, dev)
     moved = 2 * s0.numel() * 4 + 2 * x.numel() * 2 + d_t.numel() * 4
     moved += 2 * Bm.numel() * 2
-    db = _bound(moved, _ssd_flops(1, C, N, P, B * H), SCALAR_OPS_PER_S)
+    d32, d16 = _scan_bounds(moved, _ssd_flops(1, C, N, P, B16 * H))
+    plan = ssd_plan(B16, 1, H, 1, P, N)
     _time3(
-        f"ssd decode B={B} T=1 H={H} P={P} N={N} bf16 (bound {db[0]:.6f} ms, {db[1]})",
+        f"ssd decode B={B16} T=1 H={H} P={P} N={N} bf16 ({_fmt_bounds(d32, d16)}; "
+        f"{plan.route} route, grid {plan.decode_grid})",
         lambda: ssd_cuda(x, d_t, A, Bm, Cm, s0, chunk=C),
         lambda: ops.ssd(x, d_t, A, Bm, Cm, D, s0, chunk=C, impl="plain"),
         None,
@@ -1038,9 +1192,12 @@ def _demangle_kernel(mangled: str) -> str:
         name = mangled[m.end() : end]
         targs = re.match(r"I(.*?E)Ev", mangled[end:])
         if targs:
-            args = re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", targs.group(1))
+            args = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|f", targs.group(1))
             name += "<" + ", ".join(
-                "bf16" if a.group(0)[0] == "1" else a.group(1) or "float"
+                "bf16"
+                if a.group(0)[0] == "1"
+                else a.group(1)
+                or ("true" if a.group(2) == "1" else "false" if a.group(2) else "float")
                 for a in args
             ) + ">"
         return name
@@ -1062,9 +1219,33 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
+#: the port's scans run several kernels a call (csrc/ssd.cu, rwkv6.cu):
+#: a profile sums them under the wrapper's name, one figure per call
+SCAN_PREFIXES = {"ssd_": "ssd", "wkv_": "rwkv6"}
+
+
+def _group_scans(kernels: list) -> list:
+    """``kernels`` ((total us, count, key), ...) with each scan's kernels
+    merged into one entry per scan: their times summed, their count the
+    largest (the calls), the key the scan's name and its kernels."""
+    out, merged = [], {}
+    for k in kernels:
+        name = _kernel_name(k[2]) if "::" in k[2] else k[2]
+        scan = next((v for p, v in SCAN_PREFIXES.items() if name.startswith(p)), None)
+        if scan is None:
+            out.append(k)
+            continue
+        t, c, names = merged.get(scan, (0.0, 0, []))
+        merged[scan] = (t + k[0], max(c, k[1]), names + [name])
+    for scan, (t, c, names) in merged.items():
+        out.append((t, c, f"{scan} [" + " + ".join(names) + "]"))
+    return sorted(out, key=lambda k: k[0], reverse=True)
+
+
 def _kernel_name(key: str) -> str:
     """The bare function name of a profiler key such as
-    ``void (anonymous namespace)::ssd_kernel<float>(float const*, ...)``."""
+    ``void (anonymous namespace)::ssd_pass_kernel<float>(float const*, ...)``
+    or ``(anonymous namespace)::ssd_out_mma_kernel(...)``."""
     return key.split("::")[1].split("<")[0].split("(")[0]
 
 
@@ -1157,17 +1338,21 @@ def phase_breakdown(dev, name: str, params) -> None:
             torch.cuda.synchronize()
         dev_us, kernels = _device_us(prof)
         dev_ms = dev_us / 5 / 1e3
+        # the port's own kernels (csrc/'s anonymous namespace), each scan's
+        # passes summed into one figure per call
+        ours = _group_scans([k for k in kernels if _ours(k[2])])
+        rest = [k for k in kernels if not _ours(k[2])]
+        top = sorted(ours + rest, key=lambda k: k[0], reverse=True)
         if dev_ms > 0:
             idle = f"{1 - dev_ms / host_ms:.4f}"
             shown = ", ".join(
-                f"{k[2][:48]} x{k[1] // 5} {k[0] / 5:.1f} us" for k in kernels[:6]
+                f"{k[2][:48]} x{k[1] // 5} {k[0] / 5:.1f} us" for k in top[:6]
             )
         else:
             idle, shown = "not measured (the profiler saw no kernel)", ""
-        # the port's own kernels (csrc/'s anonymous namespace), ranked or not
-        ours = [k for k in kernels if k[2].startswith("void (anonymous namespace)::")]
+        names = [_kernel_name(k[2]) if "::" in k[2] else k[2] for k in ours]
         ours = ", ".join(
-            f"{_kernel_name(k[2])} x{k[1] // 5} {k[0] / 5:.1f} us" for k in ours
+            f"{name} x{k[1] // 5} {k[0] / 5:.1f} us" for name, k in zip(names, ours)
         )
         print(
             f"phase {ph}b: {name} {what}: host {host_ms:.4f} ms/call, kernels "

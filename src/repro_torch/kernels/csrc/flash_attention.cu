@@ -244,8 +244,6 @@ cudaError_t launch_scalar(const void* q, const void* k, const void* v,
 
 // ---------------------------------------------------------------- bf16
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kRowGroups = 2;  // 16 query rows each
 constexpr int kKeySplit = 2;   // warps per row group, each a part of the keys
 constexpr int kMmaRows = 16 * kRowGroups;  // queries per block
@@ -253,41 +251,6 @@ constexpr int kMmaThreads = 32 * kRowGroups * kKeySplit;
 constexpr int kKeys = 64;  // keys per shared-memory tile
 constexpr int kPad = 8;           // bf16 elements (16 bytes) of row padding
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
-// addresses of matrix i, register i receives it in the mma fragment
-// layout (row lane / 4, columns 2 (lane % 4) and + 1).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// The same, each matrix transposed on the way.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
 
 // Shared memory of the bf16 kernel: the Q tile and a two-stage K/V
 // ring; the merge of the two key halves reuses it after the key loop.

@@ -1,42 +1,106 @@
-"""CUDA wrapper of the Mamba-2 SSD chunk-scan kernel (``csrc/ssd.cu``).
+"""CUDA wrapper of the Mamba-2 SSD chunk-scan kernels (``csrc/ssd.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/ssd.py:29-84``
 (``_ssd_kernel`` under ``ssd_pallas``, ``:87``): the state-space-dual
-scan ``S_t = exp(A dt_t) S_{t-1} + dt_t x_t B_t^T``, ``y_t = S_t C_t``
-in chunks whose ``[P, N]`` fp32 state crosses a sequential chunk loop;
+scan ``S_t = exp(A dt_t) S_{t-1} + dt_t x_t B_t^T``, ``y_t = S_t C_t``;
 returns y without the D-skip (``ops.ssd`` adds it, as the reference's
 ``ops.ssd`` does) and the final fp32 state.
 
-Design: the kernel reads the model layout where it lies: x
+Design: the kernels read the model layout where it lies: x
 ``[B, T, H, P]``, dt ``[B, T, H]``, B/C ``[B, T, G, N]`` read by group
 ``h // (H / G)`` (no H/G-fold copy), x, B and C possibly views into the
-Mamba block's conv output (a batch and a token stride each).  A ragged
-last chunk is treated as the reference's zero padding would be.  One
-512-thread block per (b, h, Pb channels), the state slice in shared
-memory, scalar fp32 FMAs; Pb is the whole head where the grid already
-has two blocks per SM (a decode step), else 16 (a prefill).
+Mamba block's conv output (a batch and a token stride each).  A
+sequence (T > 1) runs chunk-parallel in three passes of one call, over
+chunks of 64 tokens: each chunk's own state, the state passed from
+chunk to chunk, then the outputs with ``C B^T`` computed once per chunk
+and block of heads; bf16 runs them on the tensor cores, fp32 on scalar
+FMAs (a dispatch on dtype).  One token (T == 1, a decode step) runs a
+kernel of its own that reads and writes each state row once.
+:func:`ssd_plan` holds the launch plan (grids, heads per output block,
+workspace) in plain Python; the workspace is allocated here per call,
+and the wrapper counts one launch per call.
 
 Bound on the H100 at zamba2-1.2b's prefill (B = 1, T = 384, 64 heads,
-P = N = 64, G = 1, chunk 64): 0.61 GFLOP of fp32 (9.1 us at 67 TFLOP/s)
-against about 8.5 MB (2.5 us at 3.35 TB/s), so operations.
+P = N = 64, G = 1): 8,585,472 bytes, 2.563 us at 3.35 TB/s; 0.61 GFLOP,
+9.06 us at the 67 TFLOP/s fp32 scalar rate, 0.61 us at the 989 TFLOP/s
+bf16 tensor rate.  At a decode step (16 slots) the fp32 states alone
+are 33.6 MB read and written: 10.1 us, bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from .decode_attention import SMS
 from .rmsnorm import DTYPE_CODES
+from .scan_workspace import state_pass_blocks, workspace
 
-__all__ = ["ssd_cuda", "MAX_CHUNK", "MAX_DIM"]
+__all__ = ["ssd_cuda", "ssd_plan", "heads_per_block", "SsdPlan", "MAX_CHUNK", "MAX_DIM"]
 
 #: the largest chunk, head dim P and state width N the kernel takes
 MAX_CHUNK = 64
 MAX_DIM = 64
+#: tokens per chunk of the kernels' passes, whatever chunk the caller asks
+CHUNK_TILE = 64
+#: the most heads of one B/C group an output block serves (a group of
+#: four warps each, side by side)
+MAX_HEADS_PER_BLOCK = 2
 
 _fn = None
+
+
+class SsdPlan(NamedTuple):
+    """The launch plan of one call.  ``route`` is "decode" for T == 1
+    (one kernel, grid ``decode_grid``, no workspace) and "chunked"
+    otherwise (pass 1 ``state_grid``, pass 2 ``pass_grid``, pass 3
+    ``out_grid``; ``(chunks, heads or head blocks, batch)`` and
+    ``(batch * heads, element blocks)``)."""
+
+    route: str
+    n_chunks: int
+    heads_per_block: int
+    state_grid: tuple
+    pass_grid: tuple
+    out_grid: tuple
+    decode_grid: tuple
+    ws_offsets: tuple  # bytes: (chunk states fp32, incoming states, decays fp32)
+    workspace_bytes: int
+
+
+def heads_per_block(B: int, n_chunks: int, H: int, G: int) -> int:
+    """Heads of one B/C group an output block serves (they share its
+    ``C B^T``): the most, up to ``MAX_HEADS_PER_BLOCK`` and dividing the
+    group's heads, that still leaves a block for every SM; else 1."""
+    per_group = H // G
+    for hpb in range(MAX_HEADS_PER_BLOCK, 0, -1):
+        if per_group % hpb == 0 and B * n_chunks * (H // hpb) >= SMS:
+            return hpb
+    return 1
+
+
+def ssd_plan(B: int, T: int, H: int, G: int, P: int, N: int) -> SsdPlan:
+    """The kernels' launch plan for x ``[B, T, H, P]`` and B/C
+    ``[B, T, G, N]`` (either dtype)."""
+    if T == 1:
+        return SsdPlan("decode", 0, 1, (), (), (), (H, B), (0, 0, 0), 0)
+    nc = -(-T // CHUNK_TILE)
+    hpb = heads_per_block(B, nc, H, G)
+    offsets, total = workspace(B * H * nc * P * N, B * H * nc)
+    return SsdPlan(
+        "chunked",
+        nc,
+        hpb,
+        (nc, H, B),
+        (B * H, state_pass_blocks(P * N, P * N % 4 == 0)),
+        (nc, H // hpb, B),
+        (),
+        offsets,
+        total,
+    )
 
 
 def _launcher():
@@ -59,7 +123,10 @@ def _launcher():
             ctypes.c_int,  # G
             ctypes.c_int,  # P
             ctypes.c_int,  # N
-            ctypes.c_int,  # chunk
+            ctypes.c_int,  # chunks
+            ctypes.c_int,  # heads per output block
+            ctypes.c_void_p,  # workspace
+            *[ctypes.c_longlong] * 3,  # its parts' byte offsets
             ctypes.c_int,  # type code
             ctypes.c_int,  # device
             ctypes.c_void_p,  # stream
@@ -121,10 +188,13 @@ def ssd_cuda(
         raise ValueError(
             "ssd_cuda: x, B, C need dense last two dims; dt, A, state contiguous"
         )
-    if Bb * H >= 2**31:
+    if Bb * H >= 2**31 or Bb >= 65536 or H >= 65536:
         raise ValueError(f"ssd_cuda: shape {tuple(x.shape)} out of range")
+    plan = ssd_plan(Bb, T, H, G, P, N)
     y = torch.empty((Bb, T, H, P), dtype=x.dtype, device=x.device)
     s_out = torch.empty_like(state)
+    # per call, so that threads launching at once never share it
+    ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _launcher()(
         x.data_ptr(),
@@ -147,7 +217,10 @@ def ssd_cuda(
         G,
         P,
         N,
-        int(chunk),
+        plan.n_chunks,
+        plan.heads_per_block,
+        ws.data_ptr(),
+        *plan.ws_offsets,
         DTYPE_CODES[x.dtype],
         x.device.index or 0,
         stream,

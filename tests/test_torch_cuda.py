@@ -246,30 +246,59 @@ def test_cuda_rwkv6_equals_plain_on_card(B, T, H, N, chunk, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_rwkv6_state_carry_split_equals_full_run():
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_rwkv6_state_carry_split_equals_full_run(dtype):
+    """Two calls carrying the state (the split off the 64-token chunk
+    tile and the 16-token sub-chunks) against one plain call."""
     dev = _card()
-    r, k, v, w, u, _ = _wkv_inputs(dev, 1, 64, 4, 64, "float32", seed=7)
-    o_full, s_full = ops.rwkv6(r, k, v, w, u, chunk=32)
+    r, k, v, w, u, _ = _wkv_inputs(dev, 1, 100, 4, 64, dtype, seed=7)
+    o_full, s_full = ops.rwkv6(r, k, v, w, u, chunk=32, impl="plain")
     o1, s1 = ops.rwkv6(r[:, :40], k[:, :40], v[:, :40], w[:, :40], u, chunk=32)
     o2, s2 = ops.rwkv6(r[:, 40:], k[:, 40:], v[:, 40:], w[:, 40:], u, s1, chunk=32)
-    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, **_tol("float32", 2e-4))
-    torch.testing.assert_close(s2, s_full, **_tol("float32", 2e-4))
+    got = torch.cat([o1, o2], 1).float()
+    torch.testing.assert_close(got, o_full.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s2, s_full, **_tol(dtype, 2e-4))
 
 
 @pytest.mark.cuda
-def test_cuda_rwkv6_strong_decay_stays_finite():
-    """w at its clip, exp(-e^4), over whole chunks: the kernel's pairwise
-    decay factor cannot overflow."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_rwkv6_strong_decay_stays_finite(dtype):
+    """w at its clip, exp(-e^4), over whole chunks: no factor of the
+    kernels' decays can overflow (the sequential oracle as reference:
+    the chunked plain version's split factors overflow there)."""
     dev = _card()
-    r, k, v, _, u, s0 = _wkv_inputs(dev, 1, 64, 2, 64, "float32", seed=8)
-    w = torch.full_like(r, float(torch.exp(-torch.exp(torch.tensor(4.0)))))
+    r, k, v, _, u, s0 = _wkv_inputs(dev, 1, 100, 2, 64, dtype, seed=8)
+    w = torch.full(r.shape, float(torch.exp(-torch.exp(torch.tensor(4.0)))), device=dev)
     o, s = ops.rwkv6(r, k, v, w, u, s0, chunk=32)
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
     o_seq, s_seq = ref.rwkv6_scan_ref(
         r.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), w.movedim(2, 1), u, s0
     )
-    torch.testing.assert_close(o, o_seq.movedim(1, 2), **_tol("float32", 2e-4))
-    torch.testing.assert_close(s, s_seq, **_tol("float32", 2e-4))
+    torch.testing.assert_close(
+        o.float(), o_seq.movedim(1, 2).float(), **_tol(dtype, 2e-4)
+    )
+    torch.testing.assert_close(s, s_seq, **_tol(dtype, 2e-4))
+
+
+#: ragged prompts: below the 64-token chunk tile, on and across its
+#: 16-token sub-chunk edges, and over several chunks
+RAGGED_T = [2, 5, 15, 16, 17, 20, 33, 47, 63, 64, 65, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", RAGGED_T)
+@pytest.mark.parametrize("N", [6, 16, 64])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_rwkv6_ragged_equals_plain(T, N, dtype):
+    dev = _card()
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 2, T, 3, N, dtype, seed=T * 7 + N)
+    before = rwkv6_cuda.launches
+    o, s = rwkv6_cuda(r, k, v, w, u, s0, chunk=32)
+    torch.cuda.synchronize()
+    assert rwkv6_cuda.launches == before + 1
+    o_ref, s_ref = ops.rwkv6(r, k, v, w, u, s0, chunk=32, impl="plain")
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
 
 
 def _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed):
@@ -336,3 +365,147 @@ def test_cuda_ssd_reads_strided_views_of_the_conv_output():
     )
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", RAGGED_T)
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssd_ragged_equals_plain(T, G, dtype):
+    """The chunked route on prompts below, on and across the chunk
+    tile's edges, with one and two B/C groups."""
+    dev = _card()
+    x, dt, A, Bm, Cm, D, s0 = _ssd_inputs(dev, 2, T, 8, 64, G, 64, dtype, seed=T + G)
+    before = ssd_cuda.launches
+    y, s = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=64)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    y_ref, s_ref = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=64, impl="plain")
+    torch.testing.assert_close(y.float(), y_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 20, 70])
+@pytest.mark.parametrize("P,N", [(6, 10), (5, 3), (16, 40)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssd_odd_widths_equal_plain(T, P, N, dtype):
+    """Head and state widths off the 16-wide tensor-core tiles and the
+    16-byte copies: padded tiles, element loads."""
+    dev = _card()
+    x, dt, A, Bm, Cm, D, s0 = _ssd_inputs(dev, 2, T, 4, P, 2, N, dtype, seed=P * N)
+    y, s = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=64)
+    y_ref, s_ref = ops.ssd(x, dt, A, Bm, Cm, D, s0, chunk=64, impl="plain")
+    torch.testing.assert_close(y.float(), y_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+def _conv_views(dev, B, T, H, P, G, N, dtype, seed):
+    """x, B and C as views into one [B, T, H P + 2 G N] tensor, as the
+    Mamba block passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    conv = 0.5 * torch.randn(B, T, H * P + 2 * G * N, generator=g, device=dev)
+    conv = conv.to(DTYPES[dtype])
+    x = conv[..., : H * P].reshape(B, T, H, P)
+    Bm = conv[..., H * P : H * P + G * N].reshape(B, T, G, N)
+    Cm = conv[..., H * P + G * N :].reshape(B, T, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=g, device=dev))
+    dt = 0.2 * dt
+    A = -torch.exp(0.3 * torch.randn(H, generator=g, device=dev))
+    s0 = 0.3 * torch.randn(B, H, P, N, generator=g, device=dev)
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssd_decode_route_equals_plain(B, G, dtype):
+    """T == 1 (the decode step's own kernel) on strided views of the conv
+    output, against the plain route on dense copies."""
+    dev = _card()
+    x, dt, A, Bm, Cm, s0 = _conv_views(dev, B, 1, 64, 64, G, 64, dtype, seed=B + G)
+    assert x.untyped_storage().data_ptr() == Cm.untyped_storage().data_ptr()
+    D = torch.zeros(64, device=dev)
+    before = ssd_cuda.launches
+    y, s = ssd_cuda(x, dt, A, Bm, Cm, s0)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    y_ref, s_ref = ops.ssd(
+        x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), D, s0, impl="plain"
+    )
+    torch.testing.assert_close(y.float(), y_ref.float(), **_tol(dtype, 2e-4))
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssd_state_carry_through_both_routes(dtype):
+    """A ragged prefill, three one-token calls, then another prefill,
+    each carrying the state: one plain call over the whole sequence."""
+    dev = _card()
+    T = 150
+    x, dt, A, Bm, Cm, D, s0 = _ssd_inputs(dev, 2, T, 8, 64, 2, 64, dtype, seed=11)
+    no_d = torch.zeros_like(D)
+    ys, s = [], s0
+    for lo, hi in ((0, 70), (70, 71), (71, 72), (72, 73), (73, T)):
+        y, s = ssd_cuda(
+            x[:, lo:hi], dt[:, lo:hi].contiguous(), A, Bm[:, lo:hi], Cm[:, lo:hi], s
+        )
+        ys.append(y)
+    y_ref, s_ref = ops.ssd(x, dt, A, Bm, Cm, no_d, s0, chunk=64, impl="plain")
+    torch.testing.assert_close(
+        torch.cat(ys, 1).float(), y_ref.float(), **_tol(dtype, 2e-4)
+    )
+    torch.testing.assert_close(s, s_ref, **_tol(dtype, 2e-4))
+
+
+@pytest.mark.cuda
+def test_cuda_scans_from_two_threads_equal_plain():
+    """Prefill-sized and decode-sized ssd and rwkv6 calls from two Python
+    threads at once, 50 rounds each, on the shared stream: every result
+    equals the serial kernel result, which is held against the plain
+    version (each call owns its workspace)."""
+    import threading
+
+    dev = _card()
+    tol = _tol("bfloat16", 2e-4)
+    wkv = _wkv_inputs(dev, 1, 200, 8, 64, "bfloat16", seed=21)
+    pre = _ssd_inputs(dev, 1, 200, 16, 64, 1, 64, "bfloat16", seed=22)
+    dec = _ssd_inputs(dev, 16, 1, 16, 64, 1, 64, "bfloat16", seed=23)
+
+    def ssd_k(a):
+        return ssd_cuda(a[0], a[1], a[2], a[3], a[4], a[6])
+
+    def ssd_p(a):
+        return ops.ssd(*a[:5], torch.zeros_like(a[5]), a[6], impl="plain")
+
+    calls = [
+        (lambda: rwkv6_cuda(*wkv), lambda: ops.rwkv6(*wkv, impl="plain")),
+        (lambda: ssd_k(pre), lambda: ssd_p(pre)),
+        (lambda: ssd_k(dec), lambda: ssd_p(dec)),
+    ]
+    serial = []
+    for kern, plain in calls:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        serial.append(got)
+    bad = []
+
+    def worker(order):
+        for _ in range(50):
+            for i in order:
+                got = calls[i][0]()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, serial[i])):
+                    bad.append(i)
+
+    orders = ((0, 2, 1), (2, 1, 0))
+    threads = [threading.Thread(target=worker, args=(o,)) for o in orders]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad, f"calls {sorted(set(bad))} differed under concurrency"
