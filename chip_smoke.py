@@ -21,11 +21,17 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    non-causal, G 1/4/6; decode lengths 0, 1, every split and tile
    boundary +-1, S and past S at both served shapes) and the serving
    paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32 heads of 64;
-   RMSNorm at widths 2,048, 2,560 and 4,096), fp32 ``2e-5``, bf16
-   ``2e-2``, done-prefix exact; then each one's time at qwen2-1.5b's
-   shape beside the plain version's, the bound and one PyTorch library
-   call's (flash attention also at the 64-token prompt, flash and decode
-   attention also at zamba2's shape, each with its launch grid);
+   RMSNorm at widths 2,048, 2,560 and 4,096, plain and with the residual
+   add folded in, whose sum must equal ``x + delta`` bit for bit; the
+   batched done-prefix on device tensors and in place on pinned host
+   memory), fp32 ``2e-5``, bf16 ``2e-2``, done-prefix exact; then each
+   one's time at qwen2-1.5b's shape beside the plain version's, the
+   bound and one PyTorch library call's (flash attention also at the
+   64-token prompt, flash and decode attention also at zamba2's shape,
+   each with its launch grid; the fused norm at a decode step and a
+   384-token prefill beside the eager add + norm pair; the engine's
+   TAIL advance both ways in host microseconds, and behind a long
+   default-stream kernel, from a profiler trace);
 3c. the WKV6 kernels, 3d. the SSD kernels (three chained passes a call,
    SSD's one-token route a kernel of its own): against their plain
    versions on the sweeps of ``tests/test_kernels.py`` (T = 20 over
@@ -61,12 +67,15 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    one burst over 8 sessions, after an untimed warm-up run, once under
    COREC and once under RSS: every request answered, ``head == tail``,
    the same tokens under both policies, and the exact launch count of
-   every kernel on the path, each path's counts set to 0 before it;
+   every kernel on the path (the norms split into plain and fused, as
+   many as the model has; every TAIL advance on the mapped route), each
+   path's counts set to 0 before it;
 7b, 9b, 10b. one decode step and one prefill of the same model: host
-   time, kernel time from a ``torch.profiler`` window, the device's
-   idle share, the top kernels and the port's own (a scan's passes
-   summed into one figure per call), and the decode step's bound (the
-   bytes it must move, from the specs);
+   time, kernel time and device launches from a ``torch.profiler``
+   window, the device's idle share, the top kernels and the port's own
+   (a scan's passes summed into one figure per call), the decode step's
+   bound (the bytes it must move, from the specs), and the same call
+   with each fused norm split back into the eager add + norm pair;
 8, 9c, 10c. one 300-token prompt through ``prefill`` and 4
    teacher-forced ``decode_step``s in fp32, with the kernels and with
    the plain versions, the logits within ``1e-3`` and the argmax equal
@@ -110,13 +119,14 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 )
 from repro_torch.kernels.doneprefix import (  # noqa: E402
     done_prefix_batch_cuda,
+    done_prefix_batch_mapped,
     done_prefix_packed_cuda,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_grid,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plan  # noqa: E402
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plan  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -152,23 +162,32 @@ ENGINE = dict(
 )
 PROMPT_LENS = (64, 384)
 NEW_TOKENS = 32
-#: the kernels of the serving paths, by wrapper
+#: the kernels of the serving paths, by wrapper (the RMSNorm kernel has
+#: two, plain and with the residual add folded in; the batched
+#: done-prefix kernel two, on device tensors and on the engine's pinned
+#: ring state in place)
 MODEL_KERNELS = {
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
     "rmsnorm": rmsnorm_cuda,
+    "add_rmsnorm": add_rmsnorm_cuda,
     "done_prefix_batch": done_prefix_batch_cuda,
+    "done_prefix_batch_mapped": done_prefix_batch_mapped,
     "rwkv6": rwkv6_cuda,
     "ssd": ssd_cuda,
 }
 
 
 def _qwen_launches(cfg, pre: int, steps: int) -> dict:
+    """RMSNorm before attention and the MLP of each layer and at the end:
+    layer 0's ln1 plain, every other norm with the residual add before it
+    folded in (add_rmsnorm)."""
     L = cfg.n_layers
     return {
         "flash_attention": L * pre,
         "decode_attention": L * steps,
-        "rmsnorm": (2 * L + 1) * (pre + steps),
+        "rmsnorm": pre + steps,
+        "add_rmsnorm": 2 * L * (pre + steps),
         "rwkv6": 0,
         "ssd": 0,
     }
@@ -176,12 +195,14 @@ def _qwen_launches(cfg, pre: int, steps: int) -> dict:
 
 def _rwkv_launches(cfg, pre: int, steps: int) -> dict:
     """WKV6 once per layer per prefill (decode runs the plain rwkv6_step);
-    RMSNorm before the time mix and the channel mix, and at the end."""
+    RMSNorm before the time mix and the channel mix, and at the end, all
+    but the first with the residual add folded in."""
     L = cfg.n_layers
     return {
         "flash_attention": 0,
         "decode_attention": 0,
-        "rmsnorm": (2 * L + 1) * (pre + steps),
+        "rmsnorm": pre + steps,
+        "add_rmsnorm": 2 * L * (pre + steps),
         "rwkv6": L * pre,
         "ssd": 0,
     }
@@ -191,26 +212,49 @@ def _zamba_launches(cfg, pre: int, steps: int) -> dict:
     """SSD once per Mamba layer per prefill AND per decode step (the
     reference's _mamba_step runs ops.ssd on its one token); the shared
     block's attention once per group; RMSNorm per Mamba layer, twice per
-    shared block (ln1, ln2), and at the end."""
+    shared block (ln1, ln2 on the concatenation [x, emb0]), and at the
+    end.  Every Mamba norm but the first and the final norm fold in the
+    residual add before them; the first Mamba norm and the shared
+    block's two run plain."""
     L, Gn = cfg.n_layers, cfg.n_layers // cfg.shared_attn_every
     return {
         "flash_attention": Gn * pre,
         "decode_attention": Gn * steps,
-        "rmsnorm": (L + 2 * Gn + 1) * (pre + steps),
+        "rmsnorm": (1 + 2 * Gn) * (pre + steps),
+        "add_rmsnorm": L * (pre + steps),
         "rwkv6": 0,
         "ssd": L * (pre + steps),
     }
 
 
 #: per served model: its phase number, requests in the burst, the exact
-#: launch counts of the kernels, and whether the reference initialiser
-#: makes its fp32 stack chaotic (fan-in of the 3-D attention weights
-#: taken from the head count), so that phase "c" asserts on weights at
-#: INIT_RANGE instead
+#: launch counts of the kernels, the RMSNorms of one model call (fused
+#: or not), and whether the reference initialiser makes its fp32 stack
+#: chaotic (fan-in of the 3-D attention weights taken from the head
+#: count), so that phase "c" asserts on weights at INIT_RANGE instead
 SERVED = {
-    MODEL: dict(phase="7", requests=32, launches=_qwen_launches, chaotic=True),
-    RWKV: dict(phase="9", requests=16, launches=_rwkv_launches, chaotic=False),
-    ZAMBA: dict(phase="10", requests=16, launches=_zamba_launches, chaotic=True),
+    MODEL: dict(
+        phase="7",
+        requests=32,
+        launches=_qwen_launches,
+        norms=lambda cfg: 2 * cfg.n_layers + 1,
+        chaotic=True,
+    ),
+    RWKV: dict(
+        phase="9",
+        requests=16,
+        launches=_rwkv_launches,
+        norms=lambda cfg: 2 * cfg.n_layers + 1,
+        chaotic=False,
+    ),
+    ZAMBA: dict(
+        phase="10",
+        requests=16,
+        launches=_zamba_launches,
+        norms=lambda cfg: cfg.n_layers + 2 * (cfg.n_layers // cfg.shared_attn_every)
+        + 1,
+        chaotic=True,
+    ),
 }
 
 
@@ -530,13 +574,20 @@ def _time3(what: str, kernel, plain, library, phase: str = "3b") -> tuple:
     return ms, plain_ms, lib_ms
 
 
+#: RMSNorm widths: the sweep, qwen2's d_model, zamba2's ln and rwkv6's
+#: d_model, zamba2's ln1/ln2 over the concatenated [x, emb0]
+NORM_WIDTHS = (64, 96, 1536, 2048, 2560, 4096)
+
+
 def phase_rmsnorm(dev, g) -> dict:
+    """The norm kernel plain and with the residual add folded in: the
+    sweep against the plain versions (the sum ``s`` bit for bit the
+    eager add's), then each timed beside the eager pair, the plain
+    version and the library's pair."""
     err, n = 0.0, 0
     for dt in (torch.float32, torch.bfloat16):
         for rows in (1, 7, 16, 512):
-            # the sweep, qwen2's d_model, zamba2's ln and rwkv6's d_model,
-            # zamba2's ln1/ln2 over the concatenated [x, emb0]
-            for d in (64, 96, 1536, 2048, 2560, 4096):
+            for d in NORM_WIDTHS:
                 for wdt in (torch.float32, torch.bfloat16):
                     x = torch.randn(rows, d, generator=g, device=dev).to(dt)
                     w = torch.randn(d, generator=g, device=dev).to(wdt)
@@ -546,6 +597,26 @@ def phase_rmsnorm(dev, g) -> dict:
                     err = max(err, _close(what, got, want, _tol(dt)))
                     n += 1
     print(f"phase 3b: rmsnorm == plain on {n} cases (max abs err {err})")
+    fused_err, n = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for rows in (1, 7, 16, 512):
+            for d in NORM_WIDTHS:
+                for wdt in (torch.float32, torch.bfloat16):
+                    x = torch.randn(rows, d, generator=g, device=dev).to(dt)
+                    delta = torch.randn(rows, d, generator=g, device=dev).to(dt)
+                    w = torch.randn(d, generator=g, device=dev).to(wdt)
+                    s, y = add_rmsnorm_cuda(x, delta, w, eps=1e-6)
+                    s_want, y_want = kref.add_rmsnorm_ref(x, delta, w, eps=1e-6)
+                    what = f"add_rmsnorm {dt} {rows}x{d} w {wdt}"
+                    torch.cuda.synchronize()
+                    if not (torch.equal(s, x + delta) and torch.equal(s, s_want)):
+                        raise AssertionError(f"{what}: s != x + delta")
+                    fused_err = max(fused_err, _close(what, y, y_want, _tol(dt)))
+                    n += 1
+    print(
+        f"phase 3b: add_rmsnorm == plain on {n} cases: s == x + delta bit for "
+        f"bit, y max abs err {fused_err}"
+    )
     # timed at a decode step of the serving cell: 16 slots x d_model, bf16
     # activations, the fp32 master weight (decode passes it as stored)
     d = configs.get(MODEL).d_model
@@ -560,7 +631,7 @@ def phase_rmsnorm(dev, g) -> dict:
     )
     moved = 2 * x.numel() * 2 + d * 4  # x read, y written, weight read
     bound = _bound(moved, 4 * x.numel(), SCALAR_OPS_PER_S)
-    return _entry(
+    entry = _entry(
         "rmsnorm",
         "rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:23",
@@ -568,6 +639,46 @@ def phase_rmsnorm(dev, g) -> dict:
         timed,
         bound,
     )
+    # the fused kernel at a decode step and at a 384-token prefill, beside
+    # the eager pair it replaces (the add, then the plain-norm launch)
+    for rows in (ENGINE["n_slots"], PROMPT_LENS[1]):
+        xs = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+        ds = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+        moved = 4 * xs.numel() * 2 + d * 4  # x, delta read; s, y written; w
+        fb = _bound(moved, 6 * xs.numel(), SCALAR_OPS_PER_S)
+        eager_ms, eager_paced = _median_ms(lambda: rmsnorm_cuda(xs + ds, w, eps=1e-6))
+        ft = _time3(
+            f"add_rmsnorm [{rows}, {d}] bf16, fp32 weight (bound {fb[0] * 1e3:.4f} "
+            f"us, {fb[1]}, {fb[2]} bytes; eager pair x + delta then rmsnorm_cuda "
+            f"{eager_ms:.5f} ms, host-paced {eager_paced:.5f} ms; library: x + "
+            f"delta then F.rms_norm, bf16 weight)",
+            lambda: add_rmsnorm_cuda(xs, ds, w, eps=1e-6),
+            lambda: kref.add_rmsnorm_ref(xs, ds, w, eps=1e-6),
+            lambda: F.rms_norm(xs + ds, (d,), w16, 1e-6),
+        )
+        fused_us, pair_us, norm_us = (
+            _kernel_us(fn, "")  # every kernel of the call
+            for fn in (
+                lambda: add_rmsnorm_cuda(xs, ds, w, eps=1e-6),
+                lambda: rmsnorm_cuda(xs + ds, w, eps=1e-6),
+                lambda: rmsnorm_cuda(xs, w, eps=1e-6),
+            )
+        )
+        print(
+            f"phase 3b: add_rmsnorm [{rows}, {d}]: the kernels' device time per "
+            f"call (profiler, 50 calls): fused {fused_us}, eager pair {pair_us}, "
+            f"the plain norm alone {norm_us}"
+        )
+        if rows == ENGINE["n_slots"]:
+            entry.update(
+                fused_ms=ft[0],
+                fused_plain_ms=ft[1],
+                fused_library_ms=ft[2],
+                fused_eager_pair_ms=eager_ms,
+                fused_bound_ms=fb[0],
+                fused_max_abs_err=fused_err,
+            )
+    return entry
 
 
 FLASH_CASES = [  # tests/test_kernels.py:41-50, then the redesign's edges
@@ -758,7 +869,8 @@ def phase_done_prefix_batch(dev, g) -> dict:
         raise AssertionError(f"done_prefix_batch edge rows: {got.tolist()}")
     cases = 1
     for R in (1, 4, 64):
-        for n in (4, 33, 512):
+        # rings read whole (n <= 32: 1, 4, 32) and walked (33, 512)
+        for n in (1, 4, 32, 33, 512):
             done = torch.rand(R, n, generator=g, device=dev) < 0.8
             done[0] = True  # all done
             kw = dict(generator=g, device=dev, dtype=torch.int32)
@@ -771,8 +883,13 @@ def phase_done_prefix_batch(dev, g) -> dict:
             want = kref.done_prefix_batch_ref(done, st, lim)
             if not torch.equal(got, want):
                 raise AssertionError(f"done_prefix_batch: kernel != plain at {R}x{n}")
+            if not torch.equal(_mapped_runs(done, st, lim), want.cpu()):
+                raise AssertionError(f"done_prefix_batch_mapped != plain at {R}x{n}")
             cases += 1
-    print(f"phase 3b: done_prefix_batch == plain on {cases} cases (exact)")
+    print(
+        f"phase 3b: done_prefix_batch == plain on {cases} cases, on device "
+        f"tensors and in place on pinned host memory (exact)"
+    )
     R, n = ENGINE["n_lanes"], ENGINE["n_slots"] // ENGINE["n_lanes"]
     done = torch.rand(R, n, generator=g, device=dev) < 0.5
     st = torch.randint(0, n, (R,), generator=g, device=dev, dtype=torch.int32)
@@ -784,7 +901,7 @@ def phase_done_prefix_batch(dev, g) -> dict:
         None,
     )
     bound = _bound(R * n + 3 * R * 4, 3 * R * n, SCALAR_OPS_PER_S)
-    return _entry(
+    entry = _entry(
         "done_prefix_batch",
         "done_prefix_batch.cu",
         "src/repro/kernels/doneprefix.py:58",
@@ -792,6 +909,140 @@ def phase_done_prefix_batch(dev, g) -> dict:
         timed,
         bound,
     )
+    entry.update(_engine_release_routes(dev, g, R, n))
+    return entry
+
+
+def _mapped_runs(done, st, lim) -> torch.Tensor:
+    """The in-place route on pinned copies of the inputs: the runs, once
+    an event recorded after the launch on a stream of its own has
+    passed."""
+    ring = [t.cpu().pin_memory() for t in (done, st, lim)]
+    out = torch.full_like(ring[1], -1).pin_memory()
+    stream, ev = torch.cuda.Stream(done.device), torch.cuda.Event()
+    done_prefix_batch_mapped(*ring, out, stream)
+    ev.record(stream)
+    ev.synchronize()
+    return out
+
+
+def _engine_release_routes(dev, g, R: int, n: int, reps: int = 200) -> dict:
+    """The engine's TAIL advance both ways, host microseconds per call,
+    in turns (copy, mapped, mapped, copy; ``reps`` calls each): the copy
+    route (``as_tensor`` of the mask, starts and limits to the card, the
+    kernel, ``.tolist()``) and the engine's (the pinned ring state read
+    in place, its own stream, an event).  Then each once while a long
+    kernel holds the default stream, from a profiler trace: the mapped
+    launch runs inside it, the copy route waits for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 3)
+    done_np = rng.random((R, n)) < 0.5
+    tail = rng.integers(0, 100, R).astype(np.int64)
+    in_flight = rng.integers(1, n + 1, R).astype(np.int64)
+
+    def copy_route():
+        return ops.done_prefix_batch(
+            torch.as_tensor(done_np, device=dev),
+            torch.as_tensor((tail % n).astype(np.int32), device=dev),
+            torch.as_tensor(in_flight.astype(np.int32), device=dev),
+        ).tolist()
+
+    shapes = (((R, n), torch.bool),) + ((R, torch.int32),) * 3
+    ring = tuple(torch.zeros(sh, dtype=dt, pin_memory=True) for sh, dt in shapes)
+    done_v, start_v, limit_v, out_v = (t.numpy() for t in ring)
+    done_v[:] = done_np
+    stream, ev = torch.cuda.Stream(dev), torch.cuda.Event()
+
+    def mapped_route():
+        start_v[:] = tail % n
+        limit_v[:] = in_flight
+        done_prefix_batch_mapped(*ring, stream)
+        ev.record(stream)
+        ev.synchronize()
+        return out_v.tolist()
+
+    if copy_route() != mapped_route():
+        raise AssertionError("engine TAIL advance: the two routes disagree")
+    host = {"copy": [], "mapped": []}
+    for name in ("copy", "mapped", "mapped", "copy"):
+        fn = copy_route if name == "copy" else mapped_route
+        for _ in range(reps // 2):
+            t0 = time.perf_counter()
+            fn()
+            host[name].append((time.perf_counter() - t0) * 1e6)
+    copy_us, mapped_us = (float(np.median(host[k])) for k in ("copy", "mapped"))
+    # device time of the kernel itself on each route (profiler, 50 calls)
+    on_device, on_pinned = (
+        _kernel_us(fn, "done_prefix_batch") for fn in (copy_route, mapped_route)
+    )
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)  # ~10 ms on the default stream
+        t0 = time.perf_counter()
+        mapped_route()
+        busy_mapped = (time.perf_counter() - t0) * 1e6
+        t0 = time.perf_counter()
+        copy_route()
+        busy_copy = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+    ks = _trace_kernels(prof)
+    spin = next((e for e in ks if "spin" in e["name"]), None)
+    ours = [e for e in ks if "done_prefix_batch" in e["name"]]
+    if spin is None or len(ours) != 2:
+        where = f"not measured ({len(ks)} kernels in the trace)"
+    else:
+        ts, end = spin["ts"], spin["ts"] + spin["dur"]
+        m_ts, m_end = ours[0]["ts"], ours[0]["ts"] + ours[0]["dur"]
+        if not m_end < end:
+            raise AssertionError("the mapped launch waited for the default stream")
+        copy_ts = ours[1]["ts"]
+        where = (
+            f"mapped kernel {m_ts - ts:.1f}-{m_end - ts:.1f} us into the "
+            f"{end - ts:.1f} us default-stream kernel; copy-route kernel at "
+            f"{copy_ts - ts:.1f} us"
+        )
+    print(
+        f"phase 3b: engine TAIL advance [{R}, {n}] rings, host us per call "
+        f"(median of {reps}, in turns): copy route {copy_us:.2f}, mapped "
+        f"route {mapped_us:.2f}; the kernel's device time (profiler, 50 "
+        f"calls): on device tensors {on_device}, on the pinned rings "
+        f"{on_pinned}; behind a ~10 ms default-stream kernel: "
+        f"mapped {busy_mapped:.1f} us, copy {busy_copy:.1f} us (trace: {where})"
+    )
+    return dict(engine_copy_route_us=copy_us, engine_mapped_route_us=mapped_us)
+
+
+def _kernel_us(fn, name: str, calls: int = 50) -> str:
+    """Device time per call of the kernels whose name holds ``name``,
+    from a profiler window of ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ours = [
+        e
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key
+    ]
+    if not ours:
+        return "not measured (the profiler saw no kernel)"
+    return f"{sum(_self_us(e) for e in ours) / calls:.3f} us"
+
+
+def _trace_kernels(prof) -> list:
+    """The kernel events (``name``, ``ts``, ``dur`` in us) of a profiler
+    window's trace, in start order."""
+    path = _build.BUILD_DIR / "kernels_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ks = [e for e in events if e.get("cat") == "kernel" and "name" in e]
+    return sorted(ks, key=lambda e: e["ts"])
 
 
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_kernels.py's, for both scans
@@ -840,15 +1091,7 @@ def _pass_split(fn, first: str, n: int = 20) -> str:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    path = _build.BUILD_DIR / "pass_split_trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    ks = sorted(
-        (e for e in events if e.get("cat") == "kernel" and _ours(e.get("name", ""))),
-        key=lambda e: e["ts"],
-    )
+    ks = [e for e in _trace_kernels(prof) if _ours(e["name"])]
     calls = []
     for e in ks:
         if _kernel_name(e["name"]).startswith(first) or not calls:
@@ -1140,8 +1383,15 @@ def phase_serving(dev, name: str):
         for k, n in spec["launches"](cfg, pre, steps).items():
             if got[k] != n:
                 raise AssertionError(f"{name}/{policy}: {k} ran {got[k]}x, want {n}")
-        if got["done_prefix_batch"] < 1:
-            raise AssertionError(f"{name}/{policy}: done_prefix_batch never launched")
+        norms = spec["norms"](cfg) * (pre + steps)
+        if got["rmsnorm"] + got["add_rmsnorm"] != norms:
+            raise AssertionError(f"{name}/{policy}: {norms} norms wanted, got {got}")
+        mapped, copies = got["done_prefix_batch_mapped"], got["done_prefix_batch"]
+        if mapped < 1 or copies != 0:
+            raise AssertionError(
+                f"{name}/{policy}: the TAIL advance ran the mapped route "
+                f"{mapped}x and the copy route {copies}x (want >= 1 and 0)"
+            )
         ttft = [r.ttft for r in res]
         lat = [r.latency for r in res]
         gen_tokens = sum(len(r.tokens) for r in res)
@@ -1165,16 +1415,19 @@ def phase_serving(dev, name: str):
     return launches, params
 
 
+def _self_us(e) -> float:
+    """A profiler average's device time (us), across torch versions."""
+    t = getattr(e, "self_device_time_total", None)
+    return float(e.self_cuda_time_total if t is None else t)
+
+
 def _device_us(prof) -> tuple:
     """Total kernel time (us) of a profiler window, and the top kernels."""
     kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        kernels.append((float(t), e.count, e.key))
+        kernels.append((_self_us(e), e.count, e.key))
     kernels.sort(reverse=True)
     return sum(k[0] for k in kernels), kernels
 
@@ -1192,14 +1445,19 @@ def _demangle_kernel(mangled: str) -> str:
         name = mangled[m.end() : end]
         targs = re.match(r"I(.*?E)Ev", mangled[end:])
         if targs:
-            args = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|f", targs.group(1))
-            name += "<" + ", ".join(
-                "bf16"
-                if a.group(0)[0] == "1"
-                else a.group(1)
-                or ("true" if a.group(2) == "1" else "false" if a.group(2) else "float")
-                for a in args
-            ) + ">"
+            args, last = [], "?"
+            pat = r"13__nv_bfloat16|S\d*_|Li(\d+)E|Lb([01])E|f"
+            for a in re.finditer(pat, targs.group(1)):
+                tok = a.group(0)
+                if tok[0] in "1f":
+                    last = "bf16" if tok[0] == "1" else "float"
+                    args.append(last)
+                elif tok[0] == "S":  # a back-reference: the type named before
+                    args.append(last)
+                else:
+                    flag = "true" if a.group(2) == "1" else "false"
+                    args.append(a.group(1) or flag)
+            name += "<" + ", ".join(args) + ">"
         return name
     return mangled
 
@@ -1287,10 +1545,9 @@ def phase_breakdown(dev, name: str, params) -> None:
     """Phases 7b, 9b, 10b: where one decode step (every slot at the
     longest prompt's length) and one prefill of the longest prompt spend
     their time: host time per call (synchronised, unprofiled, median of
-    10), kernel time per call from a torch.profiler window of 5 calls,
-    and the device's idle share between them."""
-    from torch.profiler import ProfilerActivity, profile
-
+    10), kernel time and device launches per call from a torch.profiler
+    window of 5 calls, and the device's idle share between them; then
+    the same with the fused norms split back into the eager pair."""
     cfg = configs.get(name)
     ph = SERVED[name]["phase"]
     model = build_model(cfg)
@@ -1321,23 +1578,7 @@ def phase_breakdown(dev, name: str, params) -> None:
         (f"prefill [1, {n}]", prefill),
     )
     for what, fn in calls:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        host = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host.append(time.perf_counter() - t0)
-        host_ms = float(np.median(host)) * 1e3
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        dev_us, kernels = _device_us(prof)
-        dev_ms = dev_us / 5 / 1e3
+        host_ms, dev_ms, launches, kernels = _profile_call(fn)
         # the port's own kernels (csrc/'s anonymous namespace), each scan's
         # passes summed into one figure per call
         ours = _group_scans([k for k in kernels if _ours(k[2])])
@@ -1356,10 +1597,58 @@ def phase_breakdown(dev, name: str, params) -> None:
         )
         print(
             f"phase {ph}b: {name} {what}: host {host_ms:.4f} ms/call, kernels "
-            f"{dev_ms:.4f} ms/call, {len(kernels)} kernel names, idle share "
-            f"{idle}; top kernels per call: {shown}; the port's kernels per "
-            f"call: {ours or None}"
+            f"{dev_ms:.4f} ms/call, {launches:g} device launches/call, "
+            f"{len(kernels)} kernel names, idle share {idle}; top kernels per "
+            f"call: {shown}; the port's kernels per call: {ours or None}"
         )
+        # the same call with each fused norm split back into the eager pair
+        # it replaced (the add, then the plain norm): the launches it saves
+        real = ops.add_rmsnorm
+        ops.add_rmsnorm = _eager_add_norm
+        try:
+            e_host, e_dev, e_launches, _ = _profile_call(fn)
+        finally:
+            ops.add_rmsnorm = real
+        fused = SERVED[name]["launches"](cfg, 1, 0)["add_rmsnorm"]
+        print(
+            f"phase {ph}b: {name} {what} with the eager add + norm pair instead "
+            f"of add_rmsnorm: host {e_host:.4f} ms/call, kernels {e_dev:.4f} "
+            f"ms/call, {e_launches:g} device launches/call; the fused call "
+            f"launches {e_launches - launches:g} fewer ({fused} fused norms), "
+            f"kernels {(e_dev - dev_ms) * 1e3:.1f} us less"
+        )
+
+
+def _eager_add_norm(x, delta, weight, eps=1e-5, impl="auto"):
+    """``ops.add_rmsnorm`` as two launches: the eager add, then the norm."""
+    s = x + delta
+    return s, ops.rmsnorm(s, weight, eps=eps, impl=impl)
+
+
+def _profile_call(fn) -> tuple:
+    """Host ms per call (synchronised, unprofiled, median of 10), then
+    from a torch.profiler window of 5 calls the kernel ms per call, the
+    device launches per call (kernels, copies and fills) and the
+    kernels ((total us, count, key), ...)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, kernels = _device_us(prof)
+    launches = sum(k[1] for k in kernels) / 5
+    return float(np.median(host)) * 1e3, dev_us / 5 / 1e3, launches, kernels
 
 
 def _leaves(tree):
@@ -1516,8 +1805,17 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    # a kernel's launches through all its wrappers: the RMSNorm kernel as
+    # the plain and the fused norm, the batched done-prefix kernel on
+    # device tensors and on the engine's pinned ring state
     for k in model_kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "rmsnorm":
+            k["launches"] += launches["add_rmsnorm"]
+            k["fused_launches"] = launches["add_rmsnorm"]
+        if k["name"] == "done_prefix_batch":
+            k["launches"] += launches["done_prefix_batch_mapped"]
+            k["mapped_launches"] = launches["done_prefix_batch_mapped"]
     print(f"launches over the three serving paths: {launches}")
     print(json.dumps({"kernels": [kernel, *model_kernels]}))
     print(

@@ -33,6 +33,15 @@ rotated order, 32 offsets a round; ``__ballot_sync`` finds the first
 not-done offset and the loop stops there.  Bound: bytes (each mask byte
 at most once), a few bytes at the serving engine's shapes, so a launch
 is all it costs.
+
+Batched rings, read in place (``done_prefix_batch_mapped``).  The same
+kernel on pinned host memory: under unified addressing a page-locked
+tensor is mapped into the device, so the kernel reads the engine's ring
+state and writes the runs where the host keeps them, with no copy and
+on a stream of the caller's, not behind the work queued on the default
+stream.  The wrapper asks the CUDA runtime
+(``done_prefix_batch_device_pointer``) where the device reaches each
+tensor and raises for one it cannot; it never copies.
 """
 
 from __future__ import annotations
@@ -43,10 +52,15 @@ import torch
 
 from . import _build
 
-__all__ = ["done_prefix_packed_cuda", "done_prefix_batch_cuda"]
+__all__ = [
+    "done_prefix_packed_cuda",
+    "done_prefix_batch_cuda",
+    "done_prefix_batch_mapped",
+]
 
 _fn = None
 _batch_fn = None
+_pointer_fn = None
 
 
 def _launcher():
@@ -134,6 +148,29 @@ def _batch_launcher():
     return _batch_fn
 
 
+def _check_batch(name: str, done, start, limit) -> None:
+    if done.dtype != torch.bool or start.dtype != torch.int32:
+        raise TypeError(f"{name}: done must be bool, start int32")
+    if limit.dtype != torch.int32:
+        raise TypeError(f"{name}: limit must be int32")
+    if done.dim() != 2 or start.shape != (done.shape[0],) or limit.shape != start.shape:
+        raise ValueError(
+            f"{name}: done [R, n], start and limit [R], got "
+            f"{tuple(done.shape)}, {tuple(start.shape)}, {tuple(limit.shape)}"
+        )
+    if not all(t.is_contiguous() for t in (done, start, limit)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    rows, n = done.shape
+    if not 0 < n < 2**30 or rows >= 2**31:
+        raise ValueError(f"{name}: ring size {n} or rows {rows}")
+
+
+def _launch_batch(ptrs, rows: int, n: int, device: int, stream: int) -> None:
+    rc = _batch_launcher()(*ptrs, rows, n, device, stream)
+    if rc != 0:
+        raise RuntimeError(f"done_prefix_batch launch failed: cudaError {rc}")
+
+
 def done_prefix_batch_cuda(
     done: torch.Tensor,  # [R, n] bool, one READ_DONE row per ring, CUDA
     start: torch.Tensor,  # [R] int32 TAIL slot index per ring
@@ -144,37 +181,64 @@ def done_prefix_batch_cuda(
     ts = (done, start, limit)
     if not all(t.is_cuda and t.device == done.device for t in ts):
         raise ValueError("done_prefix_batch_cuda: tensors must share a CUDA device")
-    if done.dtype != torch.bool or start.dtype != torch.int32:
-        raise TypeError("done_prefix_batch_cuda: done must be bool, start int32")
-    if limit.dtype != torch.int32:
-        raise TypeError("done_prefix_batch_cuda: limit must be int32")
-    if done.dim() != 2 or start.shape != (done.shape[0],) or limit.shape != start.shape:
-        raise ValueError(
-            f"done_prefix_batch_cuda: done [R, n], start and limit [R], got "
-            f"{tuple(done.shape)}, {tuple(start.shape)}, {tuple(limit.shape)}"
-        )
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("done_prefix_batch_cuda: inputs must be contiguous")
+    _check_batch("done_prefix_batch_cuda", done, start, limit)
     rows, n = done.shape
-    if not 0 < n < 2**30 or rows >= 2**31:
-        raise ValueError(f"done_prefix_batch_cuda: ring size {n} or rows {rows}")
     out = torch.empty(rows, dtype=torch.int32, device=done.device)
     stream = torch.cuda.current_stream(done.device).cuda_stream
-    rc = _batch_launcher()(
-        done.data_ptr(),
-        start.data_ptr(),
-        limit.data_ptr(),
-        out.data_ptr(),
-        rows,
-        n,
-        done.device.index or 0,
-        stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"done_prefix_batch launch failed: cudaError {rc}")
+    ptrs = [t.data_ptr() for t in (done, start, limit, out)]
+    _launch_batch(ptrs, rows, n, done.device.index or 0, stream)
     _build.count_launch(done_prefix_batch_cuda)
+    return out
+
+
+def _pointer_helper():
+    global _pointer_fn
+    if _pointer_fn is None:
+        fn = _build.load("done_prefix_batch").done_prefix_batch_device_pointer
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+        fn.restype = ctypes.c_int
+        _pointer_fn = fn
+    return _pointer_fn
+
+
+def _device_pointer(name: str, t: torch.Tensor, device: int) -> int:
+    """Where ``device`` reaches ``t``; raises where it cannot."""
+    out = ctypes.c_void_p()
+    rc = _pointer_helper()(t.data_ptr(), device, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}: cudaPointerGetAttributes failed: cudaError {rc}")
+    if not out.value:
+        raise ValueError(f"{name}: pinned memory the device cannot reach")
+    return out.value
+
+
+def done_prefix_batch_mapped(
+    done: torch.Tensor,  # [R, n] bool, pinned host memory
+    start: torch.Tensor,  # [R] int32, pinned
+    limit: torch.Tensor,  # [R] int32, pinned
+    out: torch.Tensor,  # [R] int32, pinned: the runs are written here
+    stream: torch.cuda.Stream,
+) -> torch.Tensor:  # out
+    """Launch the kernel on ``stream`` over the tensors where they lie,
+    in pinned host memory; ``out`` holds the runs once ``stream`` has
+    passed the launch (record an event on it and wait for that).
+    Raises for a tensor that is not pinned or that the device cannot
+    reach, and on a launch the driver refuses; never copies."""
+    name = "done_prefix_batch_mapped"
+    ts = (done, start, limit, out)
+    if any(t.is_cuda or not t.is_pinned() for t in ts):
+        raise ValueError(f"{name}: every tensor must be pinned host memory")
+    _check_batch(name, done, start, limit)
+    rows, n = done.shape
+    if out.dtype != torch.int32 or out.shape != (rows,) or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be a contiguous [{rows}] int32 tensor")
+    device = stream.device.index or 0
+    ptrs = [_device_pointer(name, t, device) for t in ts]
+    _launch_batch(ptrs, rows, n, device, stream.cuda_stream)
+    _build.count_launch(done_prefix_batch_mapped)
     return out
 
 
 #: launches of the kernel since the count was last set to 0
 done_prefix_batch_cuda.launches = 0
+done_prefix_batch_mapped.launches = 0

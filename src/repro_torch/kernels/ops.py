@@ -24,7 +24,7 @@ from . import ref
 from .decode_attention import decode_attention_cuda
 from .doneprefix import done_prefix_batch_cuda, done_prefix_packed_cuda
 from .flash_attention import flash_attention_cuda
-from .rmsnorm import rmsnorm_cuda
+from .rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from .rwkv6 import rwkv6_cuda
 from .ssd import ssd_cuda
 
@@ -32,6 +32,7 @@ __all__ = [
     "attention",
     "decode_attention",
     "rmsnorm",
+    "add_rmsnorm",
     "rwkv6",
     "rwkv6_step",
     "ssd",
@@ -141,6 +142,30 @@ def rmsnorm(
         )
         return y.reshape(x.shape)
     return ref.rmsnorm_ref(x, weight, eps=eps)
+
+
+def add_rmsnorm(
+    x: torch.Tensor,  # [..., d] the residual stream
+    delta: torch.Tensor,  # [..., d] what a block adds to it, x's dtype
+    weight: torch.Tensor,  # [d]
+    eps: float = 1e-5,
+    impl: str = "auto",
+):  # -> (s = x + delta, y = rmsnorm(s, weight)), x's shape each
+    """The residual add and the RMSNorm after it: ``s = x + delta`` in x's
+    dtype, then :func:`rmsnorm` of ``s``.  The kernel does both in one
+    launch (``add_rmsnorm_cuda``), ``s`` bit for bit the eager add's; the
+    plain version is the two steps (``ref.add_rmsnorm_ref``).  ``s`` is a
+    new tensor on both routes."""
+    if _use_kernel(impl, x):
+        d = x.shape[-1]
+        s, y = add_rmsnorm_cuda(
+            x.reshape(-1, d).contiguous(),
+            delta.reshape(-1, d).contiguous(),
+            weight.contiguous(),
+            eps=eps,
+        )
+        return s.reshape(x.shape), y.reshape(x.shape)
+    return ref.add_rmsnorm_ref(x, delta, weight, eps=eps)
 
 
 def _heads_first(a: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 
 __all__ = [
     "rmsnorm_ref",
+    "add_rmsnorm_ref",
     "attention_ref",
     "decode_attention_ref",
     "done_prefix_ref",
@@ -76,6 +77,16 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def add_rmsnorm_ref(
+    x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+):
+    """``s = x + delta``, then ``rmsnorm_ref(s, weight)``: the residual add
+    and the norm after it, as the reference's models compute them one
+    after the other.  Returns (s, y)."""
+    s = x + delta
+    return s, rmsnorm_ref(s, weight, eps=eps)
 
 
 def attention_ref(

@@ -15,7 +15,7 @@ which gives the same values without re-reading fp32 masters per step.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +33,7 @@ __all__ = [
     "apply_rope",
     "norm_specs",
     "apply_norm",
+    "apply_add_norm",
     "attn_specs",
     "attention_block",
     "attention_decode_block",
@@ -129,12 +130,32 @@ def norm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return {"w": ParamSpec((cfg.d_model,), (None,), init="ones")}
 
 
+def _norm_impl(cfg: ArchConfig) -> str:
+    """The reference's rule (``layers.py:119-120``): the plain version
+    only where the config names a plain route, else ``"auto"``."""
+    return "plain" if cfg.attention_impl in ("xla", "naive") else "auto"
+
+
 def apply_norm(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """RMSNorm with the weight as stored.  The impl follows the
-    reference's rule (``layers.py:119-120``): the plain version only
-    where the config names a plain route, else ``"auto"``."""
-    impl = "plain" if cfg.attention_impl in ("xla", "naive") else "auto"
-    return ops.rmsnorm(x, p["w"], eps=cfg.norm_eps, impl=impl)
+    """RMSNorm with the weight as stored."""
+    return ops.rmsnorm(x, p["w"], eps=cfg.norm_eps, impl=_norm_impl(cfg))
+
+
+def apply_add_norm(
+    p: Dict[str, Any],
+    x: torch.Tensor,  # the residual stream
+    delta: Optional[torch.Tensor],  # a block's output not yet added to it
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: ``(s, RMSNorm(s))`` with
+    ``s = x + delta`` the new residual, one kernel launch on the card
+    (``ops.add_rmsnorm``).  With ``delta`` None, ``(x, apply_norm(x))``.
+    The models hand a block's output on as ``delta`` instead of adding
+    it, so that the next norm folds the add in; the values are the
+    reference's, which adds first and normalises the sum."""
+    if delta is None:
+        return x, apply_norm(p, x, cfg)
+    return ops.add_rmsnorm(x, delta, p["w"], eps=cfg.norm_eps, impl=_norm_impl(cfg))
 
 
 # ----------------------------------------------------------------------

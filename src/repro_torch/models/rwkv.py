@@ -16,7 +16,10 @@ are kept: prefill rounds every leaf to the compute dtype first
 casts at use, so ``u``, ``w_base``, ``w_lora_b`` and the GroupNorm
 affine stay fp32 there (``rwkv.py:277-283``).  ``prepare`` casts every
 other weight once.  ``decode_step`` writes the new state into the cache
-in place (the reference returns a new cache): the same values.
+in place (the reference returns a new cache): the same values.  Each
+residual add is folded into the norm after it (``apply_add_norm``: the
+sum bit for bit the reference's, one kernel launch on the card); the
+token shifts keep the norms' outputs, as the reference's do.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..config import ArchConfig
 from ..kernels import ops
 from .base import LMBase, _stack, _unstack
 from .layers import (
-    apply_norm,
+    apply_add_norm,
     cast_tree,
     cdtype,
     embed_specs,
@@ -188,15 +191,14 @@ class Rwkv6LM(LMBase):
         B = tokens.shape[0]
         z_state = torch.zeros(B, self.H, self.N, self.N, device=x.device)
         z_last = torch.zeros(B, 1, cfg.d_model, dtype=dt, device=x.device)
-        states = []
+        states, delta = [], None  # delta: a block's output, added by the next norm
         for lp in _unstack(params["layers"], cfg.n_layers):
-            h = apply_norm(lp["tm"]["ln"], x, cfg)
+            x, h = apply_add_norm(lp["tm"]["ln"], x, delta, cfg)
             a, wkv = self._time_mix(lp["tm"], h, self._shift(h, z_last), z_state, dt)
-            x = x + a
-            h2 = apply_norm(lp["cm"]["ln"], x, cfg)
-            x = x + self._channel_mix(lp["cm"], h2, self._shift(h2, z_last), dt)
+            x, h2 = apply_add_norm(lp["cm"]["ln"], x, a, cfg)
+            delta = self._channel_mix(lp["cm"], h2, self._shift(h2, z_last), dt)
             states.append((wkv, h[:, -1:], h2[:, -1:]))
-        return apply_norm(params["final_norm"], x, cfg), states
+        return apply_add_norm(params["final_norm"], x, delta, cfg)[1], states
 
     @torch.inference_mode()
     def forward(self, params, tokens, collect_state: bool = False):
@@ -255,15 +257,15 @@ class Rwkv6LM(LMBase):
         dt = cdtype(cfg)
         x = embed_tokens(params["embed"], tokens, cfg)
         wkv, tm_last, cm_last = cache["wkv"], cache["tm_last"], cache["cm_last"]
+        delta = None  # a block's output, added by the next norm
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            h = apply_norm(lp["tm"]["ln"], x, cfg)
+            x, h = apply_add_norm(lp["tm"]["ln"], x, delta, cfg)
             a, wkv_new = self._time_mix_step(lp["tm"], h, tm_last[i], wkv[i], dt)
-            x = x + a
-            h2 = apply_norm(lp["cm"]["ln"], x, cfg)
-            x = x + self._channel_mix(lp["cm"], h2, cm_last[i], dt)
+            x, h2 = apply_add_norm(lp["cm"]["ln"], x, a, cfg)
+            delta = self._channel_mix(lp["cm"], h2, cm_last[i], dt)
             wkv[i] = wkv_new
-            tm_last[i] = h
+            tm_last[i] = h  # the token shifts keep the norms' outputs
             cm_last[i] = h2
-        x = apply_norm(params["final_norm"], x, cfg)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
         logits = unembed(params["embed"], x, cfg)
         return dict(cache, lengths=cache["lengths"] + 1), logits[:, 0]

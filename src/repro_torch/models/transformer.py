@@ -26,6 +26,11 @@ Differences from the reference, none of which changes a value:
   once; prefill still rounds the norm weights to it (the reference's
   ``cast_tree``), decode passes them as stored (fp32), as the reference
   does.
+* Each residual add is folded into the norm after it: a block's output
+  travels to the next norm (or the final one) as ``delta``, and
+  ``apply_add_norm`` returns the sum, bit for bit the reference's
+  ``x + delta``, beside its norm; on the card one kernel launch does
+  both.  Only layer 0's ``ln1`` runs plain.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from ..config import ArchConfig
 from .base import LMBase, _stack, _unstack
 from .layers import (
-    apply_norm,
+    apply_add_norm,
     attention_block,
     attention_decode_block,
     attn_specs,
@@ -102,14 +107,16 @@ class DecoderLM(LMBase):
     # ------------------------------------------------------------------
     # forward (prefill)
     # ------------------------------------------------------------------
-    def _self_layer(self, lp, x, tables):
+    def _self_layer(self, lp, x, delta, tables):
+        """One layer on the residual ``x`` and the previous layer's
+        output ``delta`` (None before the first), not yet added: returns
+        the residual, this layer's MLP output, not yet added, and the
+        K/V.  Each add goes into the norm after it (``apply_add_norm``)."""
         cfg = self.cfg
-        h = apply_norm(lp["ln1"], x, cfg)
+        x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
         a, kv = attention_block(lp["attn"], h, cfg, tables)
-        x = x + self._scaled(a)
-        h2 = apply_norm(lp["ln2"], x, cfg)
-        x = x + self._scaled(mlp_block(lp["mlp"], h2, cfg))
-        return x, kv
+        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
+        return x, self._scaled(mlp_block(lp["mlp"], h2, cfg)), kv
 
     def _scaled(self, y):
         return y if self.res_scale == 1.0 else self.res_scale * y
@@ -121,15 +128,15 @@ class DecoderLM(LMBase):
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        kvs = []
+        kvs, delta = [], None
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x, kv = self._self_layer(lp, x, tables)
+            x, delta, kv = self._self_layer(lp, x, delta, tables)
             if kv_out is not None:
                 kv_out["k"][i, :, :S] = kv["k"]
                 kv_out["v"][i, :, :S] = kv["v"]
             else:
                 kvs.append(kv)
-        x = apply_norm(params["final_norm"], x, cfg)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
         return x, kvs
 
     @torch.inference_mode()
@@ -188,16 +195,16 @@ class DecoderLM(LMBase):
         pos = lengths.clamp(0, S - 1).long()
         rows = torch.arange(B, device=lengths.device)
         tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+        delta = None  # a block's output, added by the next norm
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
             kc, vc = k_all[i], v_all[i]
-            h = apply_norm(lp["ln1"], x, cfg)
+            x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
             k_new, v_new = decode_kv(lp["attn"], h, cfg, tables)
             kc[rows, pos] = k_new[:, 0]
             vc[rows, pos] = v_new[:, 0]
             a = attention_decode_block(lp["attn"], h, kc, vc, new_len, cfg, tables)
-            x = x + self._scaled(a)
-            h2 = apply_norm(lp["ln2"], x, cfg)
-            x = x + self._scaled(mlp_block(lp["mlp"], h2, cfg))
-        x = apply_norm(params["final_norm"], x, cfg)
+            x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
+            delta = self._scaled(mlp_block(lp["mlp"], h2, cfg))
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
         logits = unembed(params["embed"], x, cfg)
         return dict(cache, lengths=new_len), logits[:, 0]

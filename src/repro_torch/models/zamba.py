@@ -22,7 +22,13 @@ are kept: prefill rounds every leaf to the compute dtype first
 ``prepare`` casts every other weight once.  ``decode_step`` writes the
 new states and K/V into the cache in place, the K/V write clamped to
 the last position past ``max_seq`` as the reference's
-``dynamic_update_slice`` does.
+``dynamic_update_slice`` does.  Each Mamba block's output and the
+shared block's MLP output are added by the norm after them
+(``apply_add_norm``: the sum bit for bit the reference's, one kernel
+launch on the card); the residual is summed eagerly only where the
+shared block concatenates it with the embedding, and ``x + a`` stays
+eager there too.  The first Mamba norm and the shared block's two run
+plain.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from .base import LMBase, _stack, _unstack
 from .layers import (
     _out,
     _proj,
+    apply_add_norm,
     apply_norm,
     apply_rope,
     cast_tree,
@@ -174,10 +181,13 @@ class ZambaLM(LMBase):
         out = sum(window[:, i : i + T] * w[i] for i in range(_CONV_K))
         return F.silu(out + lp["conv_b"].to(dt))
 
-    def _mamba_block(self, lp, x, dt):
-        """Full-sequence Mamba block -> (x', ssm state, conv state of the
-        last K - 1 conv inputs)."""
-        h = apply_norm(lp["ln"], x, self.cfg)
+    def _mamba_block(self, lp, x, delta, dt):
+        """Full-sequence Mamba block on the residual ``x`` plus the
+        previous block's output ``delta`` (None: nothing pending), the
+        add folded into the block's norm -> (the residual x + delta, the
+        block's output, not yet added, ssm state, conv state of the last
+        K - 1 conv inputs)."""
+        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg)
         z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
         B_, T = x.shape[0], x.shape[1]
         ssm0 = torch.zeros(B_, self.H, self.P, self.N, device=x.device)
@@ -185,16 +195,19 @@ class ZambaLM(LMBase):
         ci = torch.cat([pad, conv_in], dim=1)
         conv_out = self._conv(lp, ci, T, dt)
         out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm0, dt)
-        return x + out, new_ssm, ci[:, -(_CONV_K - 1) :]
+        return x, out, new_ssm, ci[:, -(_CONV_K - 1) :]
 
-    def _mamba_step(self, lp, x, conv_state, ssm_state, dt):
-        """Single-token Mamba block.  conv_state: [B, K-1, conv_dim]."""
-        h = apply_norm(lp["ln"], x, self.cfg)
+    def _mamba_step(self, lp, x, delta, conv_state, ssm_state, dt):
+        """Single-token Mamba block on ``x + delta``, as
+        :meth:`_mamba_block`: -> (the residual, the block's output, not
+        yet added, conv state, ssm state).  conv_state: [B, K-1,
+        conv_dim]."""
+        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg)
         z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
         window = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
         conv_out = self._conv(lp, window, 1, dt)
         out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm_state, dt)
-        return x + out, window[:, 1:], new_ssm
+        return x, out, window[:, 1:], new_ssm
 
     # ------------------------------------------------------------------
     # Shared attention block
@@ -216,11 +229,14 @@ class ZambaLM(LMBase):
         return m @ sp["w2"].to(dt)
 
     def _shared_block(self, sp, lora, x, emb0, dt, tables):
+        """-> (x + a, the MLP's output, not yet added, k, v): the
+        reference's ``x + a + mlp`` with its second add left to the
+        next norm."""
         u, q, k, v = self._shared_in(sp, lora, x, emb0, dt)
         q, k = apply_rope(q, tables), apply_rope(k, tables)
         o = ops.attention(q, k, v, causal=True, impl=ops_impl(self.cfg))
         a = _out(o, sp["wo"], dt)
-        return x + a + self._shared_mlp(sp, lora, u, dt), k, v
+        return x + a, self._shared_mlp(sp, lora, u, dt), k, v
 
     def _shared_step(self, sp, lora, x, emb0, kc, vc, lengths, dt, tables):
         """One token; writes its K/V into ``kc``/``vc`` at ``lengths``
@@ -234,7 +250,7 @@ class ZambaLM(LMBase):
         vc[rows, pos] = v[:, 0]
         o = ops.decode_attention(q[:, 0], kc, vc, lengths + 1, impl=ops_impl(self.cfg))
         a = _out(o, sp["wo"], dt)[:, None, :]
-        return x + a + self._shared_mlp(sp, lora, u, dt)
+        return x + a, self._shared_mlp(sp, lora, u, dt)
 
     # ------------------------------------------------------------------
     def _forward(self, params, tokens, cache=None):
@@ -249,22 +265,27 @@ class ZambaLM(LMBase):
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         groups = _unstack(params["mamba_g"], self.n_groups)
         loras = _unstack(params["lora"], self.n_groups)
+        delta = None  # a block's output, added by the next norm
         for g, (gp, lora) in enumerate(zip(groups, loras)):
             for j, lp in enumerate(_unstack(gp, self.period)):
-                x, ssm, conv = self._mamba_block(lp, x, dt)
+                x, delta, ssm, conv = self._mamba_block(lp, x, delta, dt)
                 if cache is not None:
                     cache["ssm_g"][g, j] = ssm
                     cache["conv_g"][g, j] = conv
-            x, k, v = self._shared_block(params["shared"], lora, x, emb0, dt, tables)
+            # the shared block reads the sum through its concatenation
+            x = x + delta
+            x, delta, k, v = self._shared_block(
+                params["shared"], lora, x, emb0, dt, tables
+            )
             if cache is not None:
                 cache["attn_k"][g, :, :S] = k
                 cache["attn_v"][g, :, :S] = v
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
-            x, ssm, conv = self._mamba_block(lp, x, dt)
+            x, delta, ssm, conv = self._mamba_block(lp, x, delta, dt)
             if cache is not None:
                 cache["ssm_x"][j] = ssm
                 cache["conv_x"][j] = conv
-        return apply_norm(params["final_norm"], x, cfg)
+        return apply_add_norm(params["final_norm"], x, delta, cfg)[1]
 
     @torch.inference_mode()
     def forward(self, params, tokens, collect_state: bool = False):
@@ -353,12 +374,16 @@ class ZambaLM(LMBase):
         groups = _unstack(params["mamba_g"], self.n_groups)
         loras = _unstack(params["lora"], self.n_groups)
         ssm_g, conv_g = cache["ssm_g"], cache["conv_g"]
+        delta = None  # a block's output, added by the next norm
         for g, (gp, lora) in enumerate(zip(groups, loras)):
             for j, lp in enumerate(_unstack(gp, self.period)):
-                x, conv, ssm = self._mamba_step(lp, x, conv_g[g, j], ssm_g[g, j], dt)
+                x, delta, conv, ssm = self._mamba_step(
+                    lp, x, delta, conv_g[g, j], ssm_g[g, j], dt
+                )
                 ssm_g[g, j] = ssm
                 conv_g[g, j] = conv
-            x = self._shared_step(
+            x = x + delta  # read through the shared block's concatenation
+            x, delta = self._shared_step(
                 params["shared"],
                 lora,
                 x,
@@ -371,9 +396,9 @@ class ZambaLM(LMBase):
             )
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
             conv, ssm = cache["conv_x"][j], cache["ssm_x"][j]
-            x, conv, ssm = self._mamba_step(lp, x, conv, ssm, dt)
+            x, delta, conv, ssm = self._mamba_step(lp, x, delta, conv, ssm, dt)
             cache["ssm_x"][j] = ssm
             cache["conv_x"][j] = conv
-        x = apply_norm(params["final_norm"], x, cfg)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
         logits = unembed(params["embed"], x, cfg)
         return dict(cache, lengths=lengths + 1), logits[:, 0]

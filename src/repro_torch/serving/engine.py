@@ -14,7 +14,13 @@ semantics: each lane has an admission cursor ``head`` and a ``tail``
 that advances only over the *contiguous* prefix of finished slots.
 All lanes' releasable prefixes come from ONE launch of the batched
 done-prefix kernel (``kernels/csrc/done_prefix_batch.cu``), so slot
-recycling costs one launch whatever the lane count.
+recycling costs one launch whatever the lane count.  On a CUDA device
+the ring state (READ_DONE mask, start and limit words, the runs) lives
+in pinned host memory that the host writes through numpy views and the
+kernel reads and writes in place (``done_prefix_batch_mapped``), on a
+stream of the engine's own: no copy, and the wait for the runs covers
+that launch alone, not the prefills queued on the default stream.  On
+the CPU the plain version runs on the same arrays.
 ``contiguous_release=False`` gives the free-list alternative.
 
 Fields and methods follow the reference one for one.  The differences:
@@ -42,6 +48,7 @@ import torch
 from ..compat import resolve_device
 from ..config import ArchConfig
 from ..kernels import _build, ops
+from ..kernels.doneprefix import done_prefix_batch_mapped
 from ..models.api import build_model
 from .request import Request, RequestResult
 from .scheduler import make_scheduler
@@ -103,7 +110,26 @@ class InferenceEngine:
         self.slot_req: List[Optional[RequestResult]] = [None] * B
         self.slot_budget = np.zeros(B, np.int32)
         # READ_DONE bits for admitted slots, one row per lane
-        self.done_mask = np.zeros((self.n_lanes, self.lane_slots), bool)
+        R, n = self.n_lanes, self.lane_slots
+        if self.device.type == "cuda":
+            # the TAIL advance's state, pinned: the host writes it through
+            # numpy views, the kernel reads it in place (see _release)
+            def pinned(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, pin_memory=True)
+
+            self._ring = (
+                pinned((R, n), torch.bool),  # done mask
+                pinned(R, torch.int32),  # start: tail % n
+                pinned(R, torch.int32),  # limit: in flight
+                pinned(R, torch.int32),  # runs
+            )
+            self.done_mask, self._start, self._limit, self._runs = (
+                t.numpy() for t in self._ring
+            )
+            self._release_stream = torch.cuda.Stream(self.device)
+            self._release_done = torch.cuda.Event()
+        else:
+            self.done_mask = np.zeros((R, n), bool)
         self.lane_head = np.zeros(self.n_lanes, np.int64)  # admission cursors
         self.lane_tail = np.zeros(self.n_lanes, np.int64)  # release cursors
         self._staged: List = []
@@ -170,20 +196,29 @@ class InferenceEngine:
 
     def _release(self):
         """Advance every lane's tail over its contiguous done prefix
-        (paper line 37-41) -- ONE batched kernel launch for all R lanes."""
+        (paper line 37-41) -- ONE batched kernel launch for all R lanes:
+        on a CUDA device over the pinned ring state in place, on the
+        engine's stream, waiting on an event of that launch alone."""
         if not self.ecfg.contiguous_release:
             return  # free-list mode: no tail semantics
         n = self.lane_slots
         in_flight = self.lane_head - self.lane_tail
         if not in_flight.any():
             return
-        dev = self.device
-        runs = ops.done_prefix_batch(
-            torch.as_tensor(self.done_mask, device=dev),
-            torch.as_tensor((self.lane_tail % n).astype(np.int32), device=dev),
-            torch.as_tensor(in_flight.astype(np.int32), device=dev),
-            impl="auto",
-        ).tolist()
+        if self.device.type == "cuda":
+            self._start[:] = self.lane_tail % n
+            self._limit[:] = in_flight
+            done_prefix_batch_mapped(*self._ring, self._release_stream)
+            self._release_done.record(self._release_stream)
+            self._release_done.synchronize()
+            runs = self._runs.copy()
+        else:
+            runs = ops.done_prefix_batch(
+                torch.as_tensor(self.done_mask),
+                torch.as_tensor((self.lane_tail % n).astype(np.int32)),
+                torch.as_tensor(in_flight.astype(np.int32)),
+                impl="auto",
+            ).numpy()
         for r in range(self.n_lanes):
             run = int(runs[r])
             if run:

@@ -21,9 +21,12 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.doneprefix import done_prefix_batch_cuda
+from repro_torch.kernels.doneprefix import (
+    done_prefix_batch_cuda,
+    done_prefix_batch_mapped,
+)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from repro_torch.kernels.rwkv6 import rwkv6_cuda
 from repro_torch.kernels.ssd import ssd_cuda
 
@@ -71,6 +74,100 @@ def test_cuda_rmsnorm_equals_plain_at_ssm_widths(d):
             ref.rmsnorm_ref(x, wt).float(),
             **_tol("bfloat16"),
         )
+
+
+#: the fused norm's widths: the reference sweep's 64 and 96 (one warp,
+#: most lanes idle), qwen2-1.5b's d_model, zamba2-1.2b's and rwkv6-3b's,
+#: zamba2's concatenation [x, emb0]
+ADD_NORM_WIDTHS = [64, 96, 1536, 2048, 2560, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ADD_NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("wdtype", sorted(DTYPES))
+def test_cuda_add_rmsnorm_equals_plain_with_the_sum_bit_exact(d, dtype, wdtype):
+    """s = x + delta bit for bit PyTorch's add, y within the norm's
+    tolerance of the plain version, at a decode step's 16 rows and a
+    prefill's 384; one launch a call."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d)
+    tdt = DTYPES[dtype]
+    for rows in (16, 384):
+        x = torch.randn(rows, d, generator=g, device=dev).to(tdt)
+        delta = torch.randn(rows, d, generator=g, device=dev).to(tdt)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(DTYPES[wdtype])
+        before = add_rmsnorm_cuda.launches
+        s, y = ops.add_rmsnorm(x, delta, w)
+        torch.cuda.synchronize()
+        assert add_rmsnorm_cuda.launches == before + 1
+        s_ref, y_ref = ref.add_rmsnorm_ref(x, delta, w)
+        assert torch.equal(s, x + delta) and torch.equal(s, s_ref)
+        torch.testing.assert_close(y.float(), y_ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_add_rmsnorm_scalar_route_on_unaligned_rows(dtype):
+    """Rows that start off a 16-byte boundary (a view one element into
+    its storage) and a width that is no multiple of the 16-byte chunk
+    take the scalar loads: the same values as the plain version."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    tdt = DTYPES[dtype]
+    for rows, d, shift in ((16, 1536, 1), (7, 100, 0), (3, 37, 1)):
+        xb = torch.randn(rows * d + shift, generator=g, device=dev).to(tdt)
+        db = torch.randn(rows * d + shift, generator=g, device=dev).to(tdt)
+        x, delta = xb[shift:].view(rows, d), db[shift:].view(rows, d)
+        w = torch.randn(d, generator=g, device=dev)
+        s, y = add_rmsnorm_cuda(x, delta, w)
+        torch.testing.assert_close(
+            rmsnorm_cuda(x, w).float(), ref.rmsnorm_ref(x, w).float(), **_tol(dtype)
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(s, x + delta)
+        torch.testing.assert_close(
+            y.float(), ref.rmsnorm_ref(x + delta, w).float(), **_tol(dtype)
+        )
+
+
+@pytest.mark.cuda
+def test_cuda_add_rmsnorm_from_two_threads_equals_serial():
+    """The fused and the plain norm launched from two Python threads at
+    once, 100 rounds each, on the shared stream: every result equals the
+    serial one (the kernel sets no attribute, each call owns its
+    outputs)."""
+    import threading
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    shapes = ((16, 1536), (384, 2560))
+    args = [
+        tuple(torch.randn(r, d, generator=g, device=dev).bfloat16() for _ in "xd")
+        + (torch.randn(d, generator=g, device=dev),)
+        for r, d in shapes
+    ]
+    calls = [
+        lambda a=a: add_rmsnorm_cuda(*a) + (rmsnorm_cuda(a[0], a[2]),) for a in args
+    ]
+    serial = [c() for c in calls]
+    torch.cuda.synchronize()
+    bad = []
+
+    def worker(order):
+        for _ in range(100):
+            for i in order:
+                got = calls[i]()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, serial[i])):
+                    bad.append(i)
+
+    threads = [threading.Thread(target=worker, args=(o,)) for o in ((0, 1), (1, 0))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad, f"calls {sorted(set(bad))} differed under concurrency"
 
 
 @pytest.mark.cuda
@@ -196,18 +293,130 @@ def test_cuda_decode_attention_edges_equal_plain(shape, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_done_prefix_batch_equals_plain_on_card():
+@pytest.mark.parametrize("n", [4, 32, 33])  # read whole (n <= 32) and walked
+def test_cuda_done_prefix_batch_equals_plain_on_card(n):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(3)
-    done = torch.rand(64, 33, generator=g, device=dev) < 0.8
+    done = torch.rand(64, n, generator=g, device=dev) < 0.8
     done[0] = True
-    st = torch.randint(0, 33, (64,), generator=g, device=dev, dtype=torch.int32)
-    lim = torch.randint(0, 34, (64,), generator=g, device=dev, dtype=torch.int32)
+    st = torch.randint(-n, 2 * n, (64,), generator=g, device=dev, dtype=torch.int32)
+    lim = torch.randint(0, n + 2, (64,), generator=g, device=dev, dtype=torch.int32)
     before = done_prefix_batch_cuda.launches
     got = ops.done_prefix_batch(done, st, lim)
     torch.cuda.synchronize()
     assert done_prefix_batch_cuda.launches == before + 1
     assert torch.equal(got, ref.done_prefix_batch_ref(done, st, lim))
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().pin_memory()
+
+
+@pytest.mark.cuda
+def test_cuda_done_prefix_batch_mapped_equals_plain_and_refuses_pageable():
+    """The in-place route on pinned host memory: the runs equal the plain
+    version on the edge rows and random rings, written where the host
+    reads them once the engine-style event has passed; pageable memory
+    raises, whatever else is right."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    stream, ev = torch.cuda.Stream(dev), torch.cuda.Event()
+    n = 64
+    edge = torch.zeros(4, n, dtype=torch.bool)
+    edge[0] = True
+    edge[2, n - 1] = edge[2, 0] = True
+    edge[3, :10] = True
+    cases = [(edge, [3, 0, n - 1, 0], [n, n, n, 4])]
+    for R, n in ((4, 4), (2, 1), (5, 32), (64, 33), (3, 512)):
+        done = (torch.rand(R, n, generator=g, device=dev) < 0.8).cpu()
+        st = torch.randint(0, n, (R,), generator=g, device=dev).tolist()
+        lim = torch.randint(0, n + 1, (R,), generator=g, device=dev).tolist()
+        cases.append((done, st, lim))
+    for done, st, lim in cases:
+        st, lim = (torch.tensor(v, dtype=torch.int32) for v in (st, lim))
+        want = ref.done_prefix_batch_ref(done, st, lim)
+        out = _pinned(torch.full_like(st, -1))
+        before = done_prefix_batch_mapped.launches
+        done_prefix_batch_mapped(_pinned(done), _pinned(st), _pinned(lim), out, stream)
+        ev.record(stream)
+        ev.synchronize()
+        assert done_prefix_batch_mapped.launches == before + 1
+        assert torch.equal(out, want)
+    words = (st[:4], lim[:4], torch.zeros(4, dtype=torch.int32))
+    pinned = [_pinned(t) for t in (edge, *words)]
+    for i in range(4):
+        args = list(pinned)
+        args[i] = args[i].clone()  # pageable
+        with pytest.raises(ValueError, match="pinned"):
+            done_prefix_batch_mapped(*args, stream)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_release_copies_nothing_and_waits_on_its_own_launch():
+    """The engine's TAIL advance on the card: one launch of the mapped
+    route, the runs the plain version gives on the same state, no
+    Memcpy in a profiler window over it, none of the copy route's
+    launches, and it returns while a long kernel still holds the default
+    stream (the wait covers its own launch only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ArchConfig
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    dev = _card()
+    cfg = ArchConfig(
+        "t",
+        "dense",
+        n_layers=1,
+        d_model=32,
+        n_heads=2,
+        n_kv_heads=2,
+        d_ff=64,
+        vocab=64,
+        dtype="float32",
+    )
+    eng = InferenceEngine(
+        cfg, EngineConfig(n_slots=16, n_lanes=4, max_seq=16), device=dev
+    )
+    n = eng.lane_slots
+    rng = torch.Generator().manual_seed(5)
+
+    def arm():
+        """Random in-flight rings: head - tail in [0, n], done bits set."""
+        eng.lane_tail[:] = torch.randint(0, 50, (4,), generator=rng).numpy()
+        in_flight = torch.randint(0, n + 1, (4,), generator=rng).numpy()
+        eng.lane_head[:] = eng.lane_tail + in_flight
+        eng.done_mask[:] = (torch.rand(4, n, generator=rng) < 0.7).numpy()
+        return (
+            torch.from_numpy(eng.done_mask.copy()),
+            torch.from_numpy((eng.lane_tail % n).astype("int32")),
+            torch.from_numpy((eng.lane_head - eng.lane_tail).astype("int32")),
+        )
+
+    for _ in range(20):
+        want = ref.done_prefix_batch_ref(*arm()).numpy()
+        tail0 = eng.lane_tail.copy()
+        eng._release()
+        assert (eng.lane_tail - tail0 == want).all()
+    arm()
+    eng.lane_head[0] = eng.lane_tail[0] + 1  # at least one ring in flight
+    copies = done_prefix_batch_cuda.launches
+    mapped = done_prefix_batch_mapped.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._release()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not [m for m in names if "memcpy" in m.lower()], names
+    assert done_prefix_batch_mapped.launches == mapped + 1
+    assert done_prefix_batch_cuda.launches == copies
+    arm()
+    eng.lane_head[0] = eng.lane_tail[0] + 1
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s on the default stream
+    eng._release()
+    busy = not torch.cuda.current_stream(dev).query()
+    torch.cuda.synchronize()
+    assert busy, "the TAIL advance waited for the default stream"
 
 
 def _wkv_inputs(dev, B, T, H, N, dtype, seed):

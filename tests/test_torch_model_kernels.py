@@ -272,6 +272,7 @@ def _op_calls():
     lim = torch.tensor([9, 2, 9], dtype=torch.int32)
     return {
         "rmsnorm": lambda impl: ops.rmsnorm(x, w, impl=impl),
+        "add_rmsnorm": lambda impl: ops.add_rmsnorm(x, 0.5 * x, w, impl=impl),
         "attention": lambda impl: ops.attention(q, kv, kv, impl=impl),
         "decode_attention": lambda impl: ops.decode_attention(
             qd, cache, cache, lens, impl=impl

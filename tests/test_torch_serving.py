@@ -155,6 +155,19 @@ def test_release_runs_one_batched_done_prefix_per_step(monkeypatch):
     assert eng.tail == eng.head == 10
 
 
+def test_mapped_done_prefix_refuses_unpinned_memory():
+    """The in-place route takes pinned host memory only: pageable CPU
+    tensors raise before anything is built or launched, never copied."""
+    from repro_torch.kernels.doneprefix import done_prefix_batch_mapped
+
+    done = torch.ones(4, 4, dtype=torch.bool)
+    words = [torch.zeros(4, dtype=torch.int32) for _ in range(3)]
+    before = done_prefix_batch_mapped.launches
+    with pytest.raises(ValueError, match="pinned"):
+        done_prefix_batch_mapped(done, *words, stream=None)
+    assert done_prefix_batch_mapped.launches == before
+
+
 def test_engine_without_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default is valid here")
