@@ -11,9 +11,18 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (seven
    sources, one ``nvcc`` each, all at once), one ptxas line (registers,
    spills) per kernel;
-3. the packed done-prefix kernel against its plain PyTorch version on
-   the card (exact equality), plus its time, the plain version's and
-   the bound;
+3. the packed done-prefix kernel on both its routes against their plain
+   PyTorch versions on the card, exactly: on packed words (the route
+   the TCP engine will take), and as the claim check the sweeps run
+   (pack + popcount + prefix of the bool claim masks in one launch) on
+   widths 1-4,097 with rows of ones and zeros, a first zero at every
+   word edge +-1, limits below and above the run, row starts 1, 3 and
+   8 bytes off 16, and the three sweep shapes; then each one's time,
+   the plain version's and the bound, and for the claim check, at each
+   sweep shape, its launch grid and load width, its device time from a
+   profiler window beside the eager epilogue it replaced (the int64
+   pack and SWAR popcount per segment, a concatenation, a full limit
+   tensor and the words kernel: its launches and device time);
 3b. the attention-model kernels (RMSNorm, flash attention, decode
    attention, batched done-prefix) against their plain versions on the
    card over the shape sweeps of ``tests/test_kernels.py``, the
@@ -51,7 +60,18 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    of ``benchmarks/jax_sweep.py`` (batch x rate x deschedule_prob x 14
    seeds = 1,008 lanes per policy, all five policies fused, 2,000
    packets per lane) through ``repro_torch.core.run_sweep``: every lane
-   exactly-once, and the launch count of every kernel on the path;
+   exactly-once, and one claim-check launch (the words route none);
+4b. the serving grid of ``benchmarks/serving_sweep.py`` at full size
+   (admit_limit x scale_backlog x rate x slo_target x 42 seeds x 5
+   policies = 10,080 lanes, 1,000 users each, diurnal arrivals,
+   heavy-tailed sessions with alpha 1.8, 2 always-on workers of 4,
+   max_batch 32) through ``run_sweep(scenario="serving")``: popcount ==
+   items + shed on every lane and == the done prefix on every lane that
+   stranded nothing, one claim check; then the overload grid of
+   ``benchmarks/overload_sweep.py`` (none / naive / graceful retry modes
+   x 2 rates x 2 loss rates x 8 seeds x 5 policies, 400 requests, up to
+   3 copies each) in one fused call: popcount == delivered + expired +
+   shed on every lane, one claim check, goodput per policy and mode;
 5. smaller queueing (M service) and bursty forwarder sweeps;
 6. compacted engine == per-claim reference engine on the card, two
    runs of one request identical, and the card's results against the
@@ -118,6 +138,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     group_block,
 )
 from repro_torch.kernels.doneprefix import (  # noqa: E402
+    claim_check_cuda,
+    claim_check_grid,
+    claim_vector_bytes,
     done_prefix_batch_cuda,
     done_prefix_batch_mapped,
     done_prefix_packed_cuda,
@@ -144,6 +167,27 @@ N_PACKETS = 2000
 N_WORKERS = 4
 MAX_BATCH = 64
 LANE_KNOBS = ("batch", "deschedule_prob")
+#: the serving grid of benchmarks/serving_sweep.py: 48 configs x 42
+#: seeds x 5 policies, 1,000 users per lane, diurnal arrivals,
+#: heavy-tailed sessions (alpha 1.8), 2 always-on workers of 4
+SERVING_AXES = {
+    "admit_limit": [16.0, 48.0, 96.0],
+    "scale_backlog": [12.0, 48.0],
+    "rate": [2.0, 3.0, 4.0, 5.0],
+    "slo_target": [20.0, 40.0],
+}
+SERVING_SEEDS = 42
+SERVING_CAPACITY = 1000
+SERVING_BATCH = 32
+#: the overload grid of benchmarks/overload_sweep.py: 3 retry modes x
+#: (rate x response loss) x 8 seeds x 5 policies, 400 requests per lane
+OVERLOAD_RATES = (2.0, 3.0)
+OVERLOAD_DROPS = (0.0, 0.1)
+OVERLOAD_SEEDS = 8
+OVERLOAD_CAPACITY = 400
+OVERLOAD_TIMEOUT = 2.0
+OVERLOAD_NAIVE_RETRIES = 2
+OVERLOAD_BATCH = 16
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 op/s,
 #: dense bf16 tensor-core op/s
 HBM_BYTES_PER_S = 3.35e12
@@ -294,6 +338,37 @@ def _bitmaps(n_bits: int, rows: int, seed: int, device):
     return w, torch.from_numpy(limits).to(device)
 
 
+#: claim-check row widths: one slot, word edges, the serving grid's
+#: capacity (rows 8 bytes off 16), the overload grid's 3 x 400 slots,
+#: the forwarder grid's 2,000 and a ragged 4,097
+CLAIM_NS = (1, 31, 32, 33, 1000, 1200, 2000, 4097)
+
+
+def claim_rows(n: int, seed: int):
+    """Claim masks of n slots and their limits (numpy): a row of ones, a
+    row of zeros, a row whose first zero sits at each word edge and one
+    slot either side (holes after it), random rows; limits at n, below
+    the run, above it and 0."""
+    rng = np.random.default_rng(seed)
+    edges = sorted(
+        {z for j in range(n // 32 + 2) for z in (32 * j - 1, 32 * j, 32 * j + 1)}
+    )
+    rows = [np.ones(n, bool), np.zeros(n, bool)]
+    for z in (z for z in edges if 0 <= z < n):
+        r = rng.random(n) < 0.7
+        r[:z] = True
+        r[z] = False
+        rows.append(r)
+    rows += list(rng.random((5, n)) < 0.5)
+    claimed = np.stack(rows)
+    run = np.where(claimed.all(1), n, np.argmin(claimed, axis=1))
+    limits = np.full(len(claimed), n, np.int32)
+    limits[2::4] = run[2::4] // 2  # below the run
+    limits[3::4] = run[3::4] + 5  # above it
+    limits[5::7] = 0
+    return claimed, limits
+
+
 def _median_ms(fn, reps: int = 200) -> tuple:
     """(device ms, host-paced ms): medians of per-call CUDA-event times.
 
@@ -375,6 +450,161 @@ def phase_kernel(dev) -> dict:
     )
 
 
+#: the claim check's three main shapes: the forwarder grid (phase 4),
+#: the serving grid and the overload grid (phase 4b), [lanes, slots]
+CLAIM_SHAPES = {
+    "forwarder": (5 * 72 * N_SEEDS, N_PACKETS),
+    "serving": (5 * 48 * SERVING_SEEDS, SERVING_CAPACITY),
+    "overload": (5 * 3 * 4 * OVERLOAD_SEEDS, OVERLOAD_CAPACITY * 3),
+}
+
+
+def _claim_bound(rows: int, n: int, limit_bytes: int = 0) -> tuple:
+    """The claim check's bound: each mask byte read once, the words and
+    the two counts written once; ~4 integer operations per 4 slots and
+    ~6 per word."""
+    nw = -(-n // 32)
+    moved = rows * n + rows * nw * 4 + rows * 8 + limit_bytes
+    return _bound(moved, rows * (n + 6 * nw), SCALAR_OPS_PER_S)
+
+
+def _eager_epilogue(segs, n: int):
+    """The sweep's epilogue before the claim check: per segment the int64
+    pack and the SWAR popcount, then the words' concatenation, a full
+    limit tensor and the packed prefix kernel."""
+    words = [ops.pack_bits_u32(s) for s in segs]
+    pops = [kref.popcount32(w).sum(dim=1).to(torch.int32) for w in words]
+    w = torch.cat(words)
+    lim = torch.full((w.shape[0],), n, dtype=torch.int32, device=w.device)
+    return w, torch.cat(pops), done_prefix_packed_cuda(w, lim, n)
+
+
+def _window(fn, calls: int = 20) -> tuple:
+    """(device us, device launches) per call of ``fn``, from a profiler
+    window of ``calls`` calls (kernels, copies and fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, kernels = _device_us(prof)
+    return total / calls, sum(k[1] for k in kernels) / calls
+
+
+def phase_claim_check(dev) -> dict:
+    """The claim check against its plain version (pack, popcount, prefix)
+    on the edge set, misaligned row starts and the main shapes, exact;
+    then its time at each main shape beside the plain version's and the
+    eager epilogue it replaced."""
+    cases = 0
+    for n in CLAIM_NS:
+        rows, limits = claim_rows(n, seed=n)
+        rows = torch.from_numpy(rows).to(dev)
+        limits = torch.from_numpy(limits).to(dev)
+        for offset in (0, 1, 3, 8):  # row starts 16-byte aligned or not
+            flat = torch.zeros(offset + rows.numel(), dtype=torch.bool, device=dev)
+            c = flat[offset:].view(rows.shape)
+            c.copy_(rows)
+            for lim in (limits, n):
+                for n_bits in {n, 32 * (-(-n // 32))}:
+                    got = claim_check_cuda(c, lim, n_bits)
+                    want = ops.claim_check(c, lim, n_bits, impl="plain")
+                    torch.cuda.synchronize()
+                    for what, a, b in zip(("words", "popcount", "prefix"), got, want):
+                        if not torch.equal(a, b):
+                            raise AssertionError(
+                                f"claim_check: kernel != plain ({what}) at n={n}, "
+                                f"offset {offset}, n_bits {n_bits}"
+                            )
+                    cases += 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    masks = {}
+    for label, (r, n) in CLAIM_SHAPES.items():
+        c = torch.rand(r, n, generator=g, device=dev) < 0.999
+        c[: r // 2] = True  # drained lanes: whole rows claimed
+        got = claim_check_cuda(c, n, n)
+        want = ops.claim_check(c, n, n, impl="plain")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"claim_check: kernel != plain at {label} [{r}, {n}]")
+        masks[label] = c
+        cases += 1
+    print(
+        f"phase 3: claim_check == plain on {cases} cases (exact): widths "
+        f"{list(CLAIM_NS)}, row starts 0/1/3/8 bytes off, per-row and "
+        "scalar limits, n_bits at n and at the word edge, the three main shapes"
+    )
+    out = {}
+    for label, c in masks.items():
+        r, n = c.shape
+        grid = claim_check_grid(r)
+        vec = claim_vector_bytes(c.data_ptr(), n)
+        ms, paced = _median_ms(lambda: claim_check_cuda(c, n, n))
+        plain_ms, _ = _median_ms(lambda: ops.claim_check(c, n, n, impl="plain"))
+        segs = c.chunk(5 if label != "overload" else 15)
+        eager_ms, _ = _median_ms(lambda: _eager_epilogue(segs, n))
+        dev_us, dev_launches = _window(lambda: claim_check_cuda(c, n, n))
+        eager_us, eager_launches = _window(lambda: _eager_epilogue(segs, n))
+        bound = _claim_bound(r, n)
+        print(
+            f"phase 3: claim_check {label} [{r}, {n}] (grid {grid[0]} x {grid[1]}, "
+            f"{vec}-byte loads): device median {ms:.5f} ms (host-paced "
+            f"{paced:.5f}), plain {plain_ms:.5f} ms; profiler {dev_us:.3f} us and "
+            f"{dev_launches:g} launches a call; the eager epilogue it replaced "
+            f"({len(segs)} segments) {eager_ms:.5f} ms, profiler {eager_us:.3f} us "
+            f"and {eager_launches:g} launches a call; bound {bound[0]:.6f} ms "
+            f"({bound[2]} bytes, {bound[1]})"
+        )
+        out[label] = dict(
+            ms=ms,
+            plain_ms=plain_ms,
+            bound_ms=bound[0],
+            bound_by=bound[1],
+            device_us=dev_us,
+            eager_ms=eager_ms,
+            eager_device_us=eager_us,
+            eager_launches=eager_launches,
+            grid=list(grid),
+            vector_bytes=vec,
+        )
+    out["max_abs_err"] = 0.0
+    return out
+
+
+def _packed_row(words: dict, claim: dict, sweeps: dict) -> dict:
+    """Row 1 of the kernel line: the packed done-prefix on both routes.
+    The main path runs the claim check (its numbers at the forwarder
+    grid's shape head the row); the words route keeps its own numbers
+    and launch count."""
+    fwd = claim["forwarder"]
+    launches = {k: sum(v[k] for v in sweeps.values()) for k in ("claim_check", "words")}
+    return dict(
+        words,
+        launches=launches["claim_check"] + launches["words"],
+        max_abs_err=max(words["max_abs_err"], claim["max_abs_err"]),
+        ms=fwd["ms"],
+        plain_ms=fwd["plain_ms"],
+        bound_ms=fwd["bound_ms"],
+        bound_by=fwd["bound_by"],
+        routes=dict(
+            claim_check=dict(
+                launches=launches["claim_check"],
+                per_sweep={k: v["claim_check"] for k, v in sweeps.items()},
+                shapes={k: v for k, v in claim.items() if k != "max_abs_err"},
+            ),
+            words=dict(
+                launches=launches["words"],
+                ms=words["ms"],
+                plain_ms=words["plain_ms"],
+                bound_ms=words["bound_ms"],
+            ),
+        ),
+    )
+
+
 def _exactly_once(sweep, n: int, what: str) -> None:
     for name, res in sweep.lanes.items():
         for f in ("claimed_popcount", "claimed_prefix", "items"):
@@ -386,7 +616,7 @@ def _exactly_once(sweep, n: int, what: str) -> None:
                 raise AssertionError(f"{what}/{name}: non-finite {f}")
 
 
-def phase_main(dev) -> int:
+def phase_main(dev) -> dict:
     seeds, lane, traffic = _grid(AXES, N_SEEDS)
     req = SweepRequest(
         scenario="forwarder",
@@ -399,21 +629,22 @@ def phase_main(dev) -> int:
         max_batch=MAX_BATCH,
     )
     timings: dict = {}
+    claim_check_cuda.launches = 0
     done_prefix_packed_cuda.launches = 0
     sweep = run_sweep(req, timings=timings, device=dev)
-    launches = done_prefix_packed_cuda.launches
+    launches = _sweep_launches("phase 4")
+    n_claim, n_words = launches["claim_check"], launches["words"]
     lanes = sum(int(r.items.shape[0]) for r in sweep.lanes.values())
     if lanes != 5 * 72 * N_SEEDS:
         raise AssertionError(f"main path ran {lanes} lanes")
-    if launches != 1:
-        raise AssertionError(f"done_prefix_packed launched {launches}x, want 1")
     _exactly_once(sweep, N_PACKETS, "main")
     run_s, compile_s = timings["run_s"], timings["compile_s"]
     print(
         f"phase 4: {lanes} lanes x {N_PACKETS} packets, 5 policies fused: "
         f"compile_s={compile_s:.4f} run_s={run_s:.4f} "
         f"lane-points/s={lanes / run_s:.2f}; exactly-once on every lane; "
-        f"done_prefix_packed launches={launches}"
+        f"claim_check launches={n_claim}, done_prefix_packed (words route) "
+        f"launches={n_words}"
     )
     for name, res in sweep.lanes.items():
         p50, p99, reorder = (
@@ -422,6 +653,163 @@ def phase_main(dev) -> int:
         print(
             f"phase 4: {name:15s} p50 {p50:.6f}  p99 {p99:.6f}  "
             f"reorder% {reorder:.4f}"
+        )
+    return launches
+
+
+def _sweep_launches(what: str) -> dict:
+    """The packed prefix kernel's launches on a sweep just run: one claim
+    check, and the words route never."""
+    got = dict(
+        claim_check=claim_check_cuda.launches, words=done_prefix_packed_cuda.launches
+    )
+    if got != dict(claim_check=1, words=0):
+        raise AssertionError(f"{what}: launches {got}, want one claim check only")
+    return got
+
+
+def phase_serving_grid(dev) -> dict:
+    """4b: the serving grid of benchmarks/serving_sweep.py at full size
+    through run_sweep(scenario="serving"): every lane exactly-once under
+    admission (each claim bit a delivery or a shed), one claim check."""
+    arrays, _ = lane_grid(SERVING_AXES, np.arange(SERVING_SEEDS))
+    seeds = arrays.pop("__seeds__")
+    req = SweepRequest(
+        scenario="serving",
+        seeds=seeds,
+        arrival="diurnal",
+        traffic_params=dict(rate=arrays["rate"], session_alpha=1.8),
+        serving_params=dict(
+            admit_limit=arrays["admit_limit"],
+            scale_backlog=arrays["scale_backlog"],
+            slo_target=arrays["slo_target"],
+            base_workers=2.0,
+        ),
+        use_policy_serving_defaults=False,
+        n_packets=SERVING_CAPACITY,
+        n_workers=N_WORKERS,
+        max_batch=SERVING_BATCH,
+    )
+    timings: dict = {}
+    claim_check_cuda.launches = 0
+    done_prefix_packed_cuda.launches = 0
+    sweep = run_sweep(req, timings=timings, device=dev)
+    launches = _sweep_launches("phase 4b serving")
+    n_claim, n_words = launches["claim_check"], launches["words"]
+    lanes = sum(int(r.items.shape[0]) for r in sweep.lanes.values())
+    if lanes != 5 * 48 * SERVING_SEEDS:
+        raise AssertionError(f"serving grid ran {lanes} lanes")
+    stranded = {}
+    for name, res in sweep.lanes.items():
+        pop, prefix, items, shed, offered = (
+            getattr(res, f).long()
+            for f in ("claimed_popcount", "claimed_prefix", "items", "shed", "offered")
+        )
+        if not bool((pop == items + shed).all()):
+            raise AssertionError(f"serving/{name}: popcount != items + shed")
+        if not bool((offered == SERVING_CAPACITY).all()):
+            raise AssertionError(f"serving/{name}: an open horizon offers everything")
+        # a lane that left nothing stranded has claimed every slot from
+        # seqno 0: its prefix is its popcount; scaleout's autoscale-gated
+        # queues may strand a tail below the wake threshold, which
+        # leaves holes (the reference's measured failure mode)
+        full = items + shed == offered
+        if not bool((prefix[full] == pop[full]).all()):
+            raise AssertionError(f"serving/{name}: prefix != popcount, drained lane")
+        if not bool((prefix <= pop).all()):
+            raise AssertionError(f"serving/{name}: prefix past popcount")
+        stranded[name] = int((~full).sum())
+        if name != "scaleout" and stranded[name]:
+            raise AssertionError(f"serving/{name}: {stranded[name]} lanes stranded")
+    run_s, compile_s = timings["run_s"], timings["compile_s"]
+    print(
+        f"phase 4b: serving grid, {lanes} lanes x {SERVING_CAPACITY} users, 5 "
+        f"policies fused: compile_s={compile_s:.4f} run_s={run_s:.4f} "
+        f"lane-points/s={lanes / run_s:.2f}; popcount == items + shed on every "
+        f"lane, == prefix on every drained lane (lanes with a stranded tail: "
+        f"{stranded}); claim_check launches={n_claim}, "
+        f"done_prefix_packed launches={n_words}"
+    )
+    for name, res in sweep.lanes.items():
+        p99 = res.p99[torch.isfinite(res.p99)]
+        print(
+            f"phase 4b: {name:15s} slo {float(res.slo_attained.mean()):.6f}  "
+            f"p99 median {float(p99.median()):.6f}  shed rate "
+            f"{float(res.shed.sum() / res.offered.sum()):.6f}"
+        )
+    return launches
+
+
+def phase_overload_grid(dev) -> dict:
+    """4b: the overload grid of benchmarks/overload_sweep.py (modes none /
+    naive / graceful x rate x response loss x seeds, every policy) in one
+    fused call: the extended exactly-once popcount == delivered + expired
+    + shed on every lane, one claim check; goodput per policy and mode."""
+    from repro_torch.core.policy import overload_defaults, torch_policies
+    from repro_torch.core.torchplane import _fused_lanes
+
+    seeds = np.arange(OVERLOAD_SEEDS)
+    k = len(OVERLOAD_DROPS) * OVERLOAD_SEEDS
+    lane_rate = np.repeat(OVERLOAD_RATES, k).astype(float)
+    lane_drop = np.tile(np.repeat(OVERLOAD_DROPS, OVERLOAD_SEEDS), 2).astype(float)
+    lane_seeds = np.tile(seeds, len(OVERLOAD_RATES) * len(OVERLOAD_DROPS))
+    requests, order = [], []
+    for pol in torch_policies():
+        modes = {
+            "none": {"timeout": OVERLOAD_TIMEOUT},
+            "naive": {"timeout": OVERLOAD_TIMEOUT, "retries": OVERLOAD_NAIVE_RETRIES},
+            "graceful": overload_defaults(pol),
+        }
+        for mode, knobs in modes.items():
+            requests.append(
+                dict(
+                    policy=pol,
+                    seeds=lane_seeds,
+                    traffic_params=dict(rate=lane_rate),
+                    serving_params=dict(knobs, drop_rate=lane_drop),
+                )
+            )
+            order.append((pol, mode))
+    timings: dict = {}
+    claim_check_cuda.launches = 0
+    done_prefix_packed_cuda.launches = 0
+    results = _fused_lanes(
+        requests,
+        workload="udp",
+        service="HT",
+        serving=True,
+        n_packets=OVERLOAD_CAPACITY,
+        n_workers=N_WORKERS,
+        max_batch=OVERLOAD_BATCH,
+        timings=timings,
+        device=dev,
+    )
+    launches = _sweep_launches("phase 4b overload")
+    n_claim = launches["claim_check"]
+    by = dict(zip(order, results))
+    goodput = {}
+    for (pol, mode), res in by.items():
+        pop, deliv, expired, shed = (
+            getattr(res, f).long()
+            for f in ("claimed_popcount", "delivered", "expired", "shed")
+        )
+        if not bool((pop == deliv + expired + shed).all()):
+            raise AssertionError(f"overload/{pol}/{mode}: extended exactly-once")
+        goodput.setdefault(pol, {})[mode] = float(res.goodput.double().mean())
+    lanes = len(lane_seeds) * len(requests)
+    run_s, compile_s = timings["run_s"], timings["compile_s"]
+    print(
+        f"phase 4b: overload grid, {lanes} lanes ({len(requests)} segments) x "
+        f"{OVERLOAD_CAPACITY} requests x up to {OVERLOAD_NAIVE_RETRIES + 1} "
+        f"copies: compile_s={compile_s:.4f} run_s={run_s:.4f} "
+        f"lane-points/s={lanes / run_s:.2f}; popcount == delivered + expired + "
+        f"shed on every lane; claim_check launches={n_claim}"
+    )
+    for pol, g in goodput.items():
+        h, nv, gr = g["none"], g["naive"], g["graceful"]
+        print(
+            f"phase 4b: {pol:15s} goodput healthy {h:.4f}  naive {nv:.4f} "
+            f"({nv / max(h, 1.0):.4f}x)  graceful {gr:.4f} ({gr / max(h, 1.0):.4f}x)"
         )
     return launches
 
@@ -1783,6 +2171,7 @@ def main() -> int:
         for line in _ptxas_summary(_build.build_log(name)):
             print(f"phase 2: {name}: {line}")
     kernel = phase_kernel(dev)
+    claim = phase_claim_check(dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
     model_kernels = [
         phase_done_prefix_batch(dev, g),
@@ -1792,7 +2181,12 @@ def main() -> int:
         phase_rwkv6(dev, g),
         phase_ssd(dev, g),
     ]
-    kernel["launches"] = phase_main(dev)
+    sweeps = {  # each sweep's counts set to 0 before it, read after
+        "forwarder": phase_main(dev),
+        "serving": phase_serving_grid(dev),
+        "overload": phase_overload_grid(dev),
+    }
+    kernel = _packed_row(kernel, claim, sweeps)
     phase_other_traffic(dev)
     phase_agreement(dev)
     launches = dict.fromkeys(MODEL_KERNELS, 0)

@@ -2,8 +2,10 @@
 
 The reference resolves names through ``repro.core.policy``'s registry
 (``PolicySpec.jax_factory``); the port keeps its own table of the same
-five names and flags (``repro/core/jaxplane.py:530-542``), so it needs
-nothing of ``repro``.  A name missing here raises with the catalog.
+five names and flags (``repro/core/jaxplane.py:530-542``), and its own
+copy of each policy's serving and overload presets
+(``repro/core/policy.py:450-541``), so it needs nothing of ``repro``.
+A name missing here raises with the catalog.
 """
 
 from __future__ import annotations
@@ -18,7 +20,14 @@ from .torchplane import (
     _select_shared,
 )
 
-__all__ = ["TORCH_POLICIES", "TorchPolicy", "torch_policies", "make_torch_policy"]
+__all__ = [
+    "TORCH_POLICIES",
+    "TorchPolicy",
+    "torch_policies",
+    "make_torch_policy",
+    "serving_defaults",
+    "overload_defaults",
+]
 
 TORCH_POLICIES = {
     "corec": TorchPolicy("corec", True, False, _select_shared, _next_batch_cap),
@@ -33,6 +42,39 @@ TORCH_POLICIES = {
         "adaptive-batch", True, False, _select_shared, _next_batch_adaptive
     ),
 }
+
+
+#: the baseline serving knobs of the shared-queue disciplines; per-worker
+#: queues carry ~1/N of the admission budget (N = 4, the reference pool)
+_SERVING_SHARED = {"admit_limit": 96.0, "base_workers": 2.0, "scale_backlog": 48.0}
+_SERVING_PERQUEUE = {"admit_limit": 24.0, "base_workers": 2.0, "scale_backlog": 12.0}
+
+#: graceful-degradation overload presets: bounded retries with backoff
+#: and jitter, a breaker on a stale queue head, and an admission depth
+#: matched to the client deadline (per-worker queues: ~1/N of it)
+_GRACEFUL_SHARED = {
+    "timeout": 2.0,
+    "retries": 2,
+    "backoff": 4.0,
+    "jitter": 1.0,
+    "breaker_age": 0.5,
+    "admit_limit": 2.0,
+}
+_GRACEFUL_PERQUEUE = dict(_GRACEFUL_SHARED, admit_limit=1.0)
+
+_PER_QUEUE = ("scaleout", "hybrid")
+
+
+def serving_defaults(name: str) -> dict:
+    """The policy's baseline serving knobs (a fresh, mergeable dict)."""
+    make_torch_policy(name)
+    return dict(_SERVING_PERQUEUE if name in _PER_QUEUE else _SERVING_SHARED)
+
+
+def overload_defaults(name: str) -> dict:
+    """The policy's graceful-degradation overload preset (a fresh dict)."""
+    make_torch_policy(name)
+    return dict(_GRACEFUL_PERQUEUE if name in _PER_QUEUE else _GRACEFUL_SHARED)
 
 
 def torch_policies() -> List[str]:

@@ -1,17 +1,25 @@
 """SweepRequest in, SweepResult out: the port's sweep entry point.
 
 The port's own copy of ``repro.core.sweep``'s request and result types,
-field for field, and :func:`run_sweep` for the ``forwarder`` and
-``queueing`` scenarios on :mod:`repro_torch.core.torchplane`.  The
-scenarios, options and service kinds not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+field for field, and :func:`run_sweep` for the ``forwarder``,
+``queueing`` and ``serving`` scenarios on
+:mod:`repro_torch.core.torchplane`.  The scenario and options not
+ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports them.
 
 ===========  =========================================================
 forwarder    open-loop L3 forwarder (sec 4.3.1): per-size lognormal
              service, ``arrival`` picks the process (poisson / bursty
              MAWI mix / diurnal).
 queueing     M/G/N vs N x M/G/1 (sec 3.2): Poisson arrivals, ``service``
-             picks M / D / LN.
+             picks M / D / LN / HT.
+serving      open-loop serving: ``n_packets`` users per lane cut at the
+             ``serving_params`` horizon, heavy-tailed (HT) sessions,
+             admission, autoscale and SLO attainment; the overload
+             knobs (``timeout``, ``retries``, ``breaker_age``, ...) ride
+             in ``serving_params`` too.  Each policy's registry presets
+             fill what ``serving_params`` leaves out
+             (``use_policy_serving_defaults``).
 ===========  =========================================================
 """
 
@@ -20,7 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
-from .policy import _fused_requests, torch_policies
+from .policy import _fused_requests, serving_defaults, torch_policies
 
 __all__ = ["SweepRequest", "SweepResult", "run_sweep", "ARRIVAL_WORKLOADS"]
 
@@ -87,17 +95,12 @@ class SweepResult:
 
 
 def _check_ported(req: SweepRequest) -> None:
-    if req.scenario == "serving":
-        raise NotImplementedError(
-            "scenario 'serving' is not ported yet: ROADMAP.md Queue A, item 4 "
-            "(serving + overload mode)"
-        )
     if req.scenario == "tcp":
         raise NotImplementedError(
             "scenario 'tcp' is not ported yet: ROADMAP.md Queue A, item 5 "
             "(TCP lane engine)"
         )
-    if req.scenario not in ("forwarder", "queueing"):
+    if req.scenario not in ("forwarder", "queueing", "serving"):
         raise ValueError(
             f"unknown scenario {req.scenario!r}; "
             "expected forwarder | queueing | tcp | serving"
@@ -110,9 +113,15 @@ def _check_ported(req: SweepRequest) -> None:
     if req.prefix_impl == "pallas" or req.prefix_interpret:
         raise NotImplementedError(
             "prefix_impl='pallas' / prefix_interpret are the JAX package's TPU "
-            "route; the port's done-prefix kernel is CUDA (ROADMAP.md Queue B, "
-            "item 1): use prefix_impl='auto' or 'cuda'"
+            "route; the port's claim-check kernel is CUDA (ROADMAP.md Queue B, "
+            "item 1): use prefix_impl='auto', 'cuda' or 'plain'"
         )
+
+
+def _serving_knobs(req: SweepRequest, name: str) -> dict:
+    base = serving_defaults(name) if req.use_policy_serving_defaults else {}
+    base.update(req.serving_params)
+    return base
 
 
 def run_sweep(
@@ -130,11 +139,12 @@ def run_sweep(
     req = request
     _check_ported(req)
     names = list(req.policies) if req.policies is not None else torch_policies()
+    serving = req.scenario == "serving"
     if req.scenario == "queueing":
         workload, service = "udp", req.service or "M"
     else:
         workload = ARRIVAL_WORKLOADS[req.arrival]
-        service = req.service or "fwd"
+        service = req.service or ("HT" if serving else "fwd")
     reqs = _fused_requests(
         req.seeds,
         lane_params=dict(req.lane_params),
@@ -142,6 +152,9 @@ def run_sweep(
         traffic_params=dict(req.traffic_params),
         fault_params=dict(req.fault_params),
     )
+    if serving:
+        for r in reqs:
+            r["serving_params"] = _serving_knobs(req, r["policy"])
     results = _fused_lanes(
         reqs,
         workload=workload,
@@ -151,6 +164,7 @@ def run_sweep(
         max_batch=req.max_batch,
         n_flows=req.n_flows,
         engine=req.engine,
+        serving=serving,
         claim_budget=req.claim_budget,
         chunk=req.chunk,
         prefix_impl=req.prefix_impl,

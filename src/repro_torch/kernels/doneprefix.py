@@ -1,8 +1,30 @@
 """CUDA wrappers of the done-prefix kernels.
 
-``done_prefix_packed_cuda`` (``csrc/done_prefix.cu``) serves the lane
-engine; ``done_prefix_batch_cuda`` (``csrc/done_prefix_batch.cu``) the
-serving engine's slot rings.
+``claim_check_cuda`` (``csrc/done_prefix.cu``) serves the lane engine:
+the packed done-prefix redesigned to take the claim masks themselves;
+``done_prefix_packed_cuda`` (same source) the prefix of bitmaps that are
+already packed; ``done_prefix_batch_cuda`` (``csrc/done_prefix_batch.cu``)
+the serving engine's slot rings.
+
+Claim check (``claim_check_cuda``).
+
+Replaces the same TPU kernel as the packed route below, together with
+the two steps the reference runs before it on the sweep's exactly-once
+path (``src/repro/core/jaxplane.py:1348`` ``pack_bits_u32``, ``:1447``
+the popcount): from R bool claim rows of n slots, one launch returns
+the packed words (bit b of word j is slot 32*j + b, pad bits 0), each
+row's popcount and its done prefix ``min(run from bit 0, n_bits,
+limit)``.  The lane engine calls it once per fused sweep, on one
+[lanes, n_slots] mask that every policy segment wrote its rows into.
+
+Design: one warp per row, 512 slots a round; each lane turns 16 bool
+bytes into 16 bits and two lanes' halves make a word (one shuffle);
+``__popc`` and ``__ffs(~w) - 1`` per word, merged with
+``__reduce_add_sync`` / ``__reduce_min_sync``.  The load width is the
+widest of 16, 8, 4 and 1 bytes that divides n and the mask's address
+(:func:`claim_vector_bytes`), so rows that do not start on 16 bytes
+(n = 1000) take narrower loads.  Bound: bytes, ~11.4 MB at the sweep's
+[5040, 2000] (~3.4 us at 3.35 TB/s).
 
 Packed (``done_prefix_packed_cuda``).
 
@@ -53,12 +75,16 @@ import torch
 from . import _build
 
 __all__ = [
+    "claim_check_cuda",
+    "claim_check_grid",
+    "claim_vector_bytes",
     "done_prefix_packed_cuda",
     "done_prefix_batch_cuda",
     "done_prefix_batch_mapped",
 ]
 
 _fn = None
+_claim_fn = None
 _batch_fn = None
 _pointer_fn = None
 
@@ -127,6 +153,114 @@ def done_prefix_packed_cuda(
 
 #: launches of the kernel since the count was last set to 0
 done_prefix_packed_cuda.launches = 0
+
+#: rows per block of the claim-check kernel (one warp each)
+CLAIM_WARPS = 8
+
+
+def _claim_launcher():
+    global _claim_fn
+    if _claim_fn is None:
+        fn = _build.load("done_prefix").claim_check_launch
+        fn.argtypes = [
+            ctypes.c_void_p,  # claimed (one byte per slot)
+            ctypes.c_void_p,  # limit (null: every row takes limit_all)
+            ctypes.c_int,  # limit_all
+            ctypes.c_void_p,  # words
+            ctypes.c_void_p,  # popcount
+            ctypes.c_void_p,  # prefix
+            ctypes.c_int,  # rows
+            ctypes.c_int,  # n
+            ctypes.c_int,  # n_words
+            ctypes.c_int,  # n_bits
+            ctypes.c_int,  # vec: load width in bytes
+            ctypes.c_int,  # device
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _claim_fn = fn
+    return _claim_fn
+
+
+def claim_vector_bytes(address: int, n: int) -> int:
+    """The claim-check kernel's load width: the widest of 16, 8 and 4
+    bytes that divides both the row length ``n`` and the mask's
+    ``address`` (then every row starts aligned and a chunk never
+    straddles a row's end), else 1."""
+    for v in (16, 8, 4):
+        if n % v == 0 and address % v == 0:
+            return v
+    return 1
+
+
+def claim_check_grid(rows: int) -> tuple:
+    """(blocks, threads per block) of a claim-check launch over ``rows``."""
+    return -(-rows // CLAIM_WARPS), 32 * CLAIM_WARPS
+
+
+def claim_check_cuda(
+    claimed: torch.Tensor,  # [R, n] bool claim masks, on a CUDA device
+    limit,  # [R] int32 cap per row, or one int for every row
+    n_bits: int,
+) -> tuple:  # (words [R, ceil(n/32)] int32, popcount [R] int32, prefix [R] int32)
+    """Pack, count and take the done prefix of R claim rows in one
+    launch on the current stream; raises on any input it does not take
+    and on a launch the driver refuses."""
+    name = "claim_check_cuda"
+    if not claimed.is_cuda:
+        raise ValueError(f"{name}: claimed must be on a CUDA device")
+    if claimed.dtype != torch.bool:
+        raise TypeError(f"{name}: claimed must be bool, got {claimed.dtype}")
+    if claimed.dim() != 2 or not claimed.is_contiguous():
+        raise ValueError(f"{name}: claimed must be a contiguous [R, n] tensor")
+    rows, n = claimed.shape
+    n_words = -(-n // 32)
+    n_bits = int(n_bits)
+    if not 0 <= n_bits <= 32 * n_words or n >= 2**30 or rows >= 2**31:
+        raise ValueError(
+            f"{name}: n_bits {n_bits} outside [0, 32 * ceil(n / 32)] or a "
+            "dimension past the kernel's int32 indexing"
+        )
+    if isinstance(limit, torch.Tensor):
+        if limit.dtype != torch.int32 or limit.shape != (rows,):
+            raise ValueError(
+                f"{name}: limit must be an int or an int32 [{rows}] tensor, got "
+                f"{limit.dtype} {tuple(limit.shape)}"
+            )
+        if limit.device != claimed.device or not limit.is_contiguous():
+            raise ValueError(f"{name}: limit must be contiguous, on claimed's device")
+        lim_ptr, lim_all = limit.data_ptr(), 0
+    else:
+        lim_ptr, lim_all = None, int(limit)
+        if not -(2**31) <= lim_all < 2**31:
+            raise ValueError(f"{name}: limit {lim_all} past int32")
+    dev = claimed.device
+    words = torch.empty((rows, n_words), dtype=torch.int32, device=dev)
+    popcount = torch.empty(rows, dtype=torch.int32, device=dev)
+    prefix = torch.empty(rows, dtype=torch.int32, device=dev)
+    rc = _claim_launcher()(
+        claimed.data_ptr(),
+        lim_ptr,
+        lim_all,
+        words.data_ptr(),
+        popcount.data_ptr(),
+        prefix.data_ptr(),
+        rows,
+        n,
+        n_words,
+        n_bits,
+        claim_vector_bytes(claimed.data_ptr(), n),
+        dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"claim_check launch failed: cudaError {rc}")
+    _build.count_launch(claim_check_cuda)
+    return words, popcount, prefix
+
+
+#: launches of the kernel since the count was last set to 0
+claim_check_cuda.launches = 0
 
 
 def _batch_launcher():

@@ -22,7 +22,11 @@ import torch.nn.functional as F
 
 from . import ref
 from .decode_attention import decode_attention_cuda
-from .doneprefix import done_prefix_batch_cuda, done_prefix_packed_cuda
+from .doneprefix import (
+    claim_check_cuda,
+    done_prefix_batch_cuda,
+    done_prefix_packed_cuda,
+)
 from .flash_attention import flash_attention_cuda
 from .rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from .rwkv6 import rwkv6_cuda
@@ -40,13 +44,12 @@ __all__ = [
     "done_prefix",
     "done_prefix_batch",
     "done_prefix_packed",
+    "claim_check",
     "pack_bits_u32",
-    "popcount32",
     "IMPLS",
 ]
 
 IMPLS = ("auto", "cuda", "plain")
-popcount32 = ref.popcount32
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -79,6 +82,32 @@ def done_prefix_packed(
             n_bits,
         )
     return ref.done_prefix_packed_ref(words, limit, n_bits=n_bits)
+
+
+def claim_check(
+    claimed: torch.Tensor,  # [R, n] bool claim masks
+    limit,  # [R] cap per row, or one int for every row
+    n_bits: int | None = None,
+    impl: str = "auto",
+) -> tuple:  # (words [R, ceil(n/32)] int32, popcount [R] int32, prefix [R] int32)
+    """The exactly-once check of R claim rows in one launch: the words of
+    :func:`pack_bits_u32`, their popcount per row, and
+    :func:`done_prefix_packed` of the words (``n_bits`` defaults to n).
+    The plain version runs those three steps as the reference does
+    (``pack_bits_u32``, ``lax.population_count`` summed, the prefix)."""
+    rows, n = claimed.shape
+    if n_bits is None:
+        n_bits = n
+    if _use_kernel(impl, claimed):
+        if isinstance(limit, torch.Tensor):
+            limit = limit.to(device=claimed.device, dtype=torch.int32).contiguous()
+        return claim_check_cuda(claimed.to(torch.bool).contiguous(), limit, n_bits)
+    words = pack_bits_u32(claimed)
+    popcount = ref.popcount32(words).sum(dim=1).to(torch.int32)
+    if not isinstance(limit, torch.Tensor):
+        limit = torch.full((rows,), int(limit), dtype=torch.int32)
+    prefix = ref.done_prefix_packed_ref(words, limit.to(words.device), n_bits)
+    return words, popcount, prefix
 
 
 def attention(

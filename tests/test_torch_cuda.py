@@ -10,18 +10,26 @@ Shapes are those of the serving paths (qwen2-1.5b, rwkv6-3b,
 zamba2-1.2b) and of the reference's sweeps; tolerances are those of
 ``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``; the WKV6 and SSD
 scans ``2e-4`` in fp32, the reference's own for them), done-prefix
-exact.  Each test also checks that the call went through the kernel
-(its launch count rose by one).
+exact, and the claim check exact on ``chip_smoke.py``'s edge set.  Each
+test also checks that the call went through the kernel (its launch
+count rose by one).
 """
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import SweepRequest, run_sweep
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.doneprefix import (
+    claim_check_cuda,
+    claim_vector_bytes,
     done_prefix_batch_cuda,
     done_prefix_batch_mapped,
 )
@@ -306,6 +314,104 @@ def test_cuda_done_prefix_batch_equals_plain_on_card(n):
     torch.cuda.synchronize()
     assert done_prefix_batch_cuda.launches == before + 1
     assert torch.equal(got, ref.done_prefix_batch_ref(done, st, lim))
+
+
+def _claim_rows(n: int):
+    """``chip_smoke.py``'s claim-check edge rows (numpy) and widths."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.claim_rows(n, seed=n)
+
+
+def _assert_claim_check(claimed, limit, n_bits):
+    before = claim_check_cuda.launches
+    got = ops.claim_check(claimed, limit, n_bits)
+    torch.cuda.synchronize()
+    assert claim_check_cuda.launches == before + 1
+    want = ops.claim_check(claimed, limit, n_bits, impl="plain")
+    for what, a, b in zip(("words", "popcount", "prefix"), got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])  # row starts off 16 bytes
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 1200, 2000, 4097])
+def test_cuda_claim_check_equals_plain_on_edges(n, offset):
+    dev = _card()
+    rows, limits = (torch.from_numpy(x).to(dev) for x in _claim_rows(n))
+    flat = torch.zeros(offset + rows.numel(), dtype=torch.bool, device=dev)
+    claimed = flat[offset:].view(rows.shape)
+    claimed.copy_(rows)
+    want_vec = max(v for v in (16, 8, 4, 1) if n % v == 0 and offset % v == 0)
+    assert claim_vector_bytes(claimed.data_ptr(), n) == want_vec
+    _assert_claim_check(claimed, limits, n)
+    _assert_claim_check(claimed, n, n)  # one limit for every row
+    _assert_claim_check(claimed, limits, 32 * (-(-n // 32)))  # n_bits past n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(5040, 2000), (10080, 1000), (480, 1200)])
+def test_cuda_claim_check_equals_plain_at_the_sweep_shapes(rows, n):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    claimed = torch.rand(rows, n, generator=g, device=dev) < 0.999
+    claimed[: rows // 2] = True  # whole rows claimed, as on a drained lane
+    _assert_claim_check(claimed, n, n)
+
+
+@pytest.mark.cuda
+def test_cuda_claim_check_refuses_what_it_does_not_take():
+    dev = _card()
+    claimed = torch.ones(8, 64, dtype=torch.bool, device=dev)
+    lim = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bool"):
+        claim_check_cuda(claimed.to(torch.uint8), lim, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        claim_check_cuda(claimed[:, ::2], lim, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        claim_check_cuda(claimed.t(), lim, 8)
+    with pytest.raises(ValueError, match="limit"):
+        claim_check_cuda(claimed, lim[:7], 64)
+    with pytest.raises(ValueError, match="limit"):
+        claim_check_cuda(claimed, lim.long(), 64)
+    with pytest.raises(ValueError, match="n_bits"):
+        claim_check_cuda(claimed, lim, 65)
+    with pytest.raises(ValueError, match="CUDA"):
+        claim_check_cuda(claimed.cpu(), 64, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_serving_sweep_equals_cpu_on_integers():
+    """One small serving sweep, overload knobs armed, on the card and on
+    the CPU from the same draws: the integer outputs agree (the claim
+    check on the card, its plain version on the CPU)."""
+    dev = _card()
+    req = SweepRequest(
+        scenario="serving",
+        seeds=np.arange(3),
+        arrival="diurnal",
+        traffic_params=dict(rate=4.0),
+        serving_params=dict(horizon=60.0, timeout=2.0, retries=1, drop_rate=0.1),
+        n_packets=150,
+        max_batch=16,
+    )
+    before = claim_check_cuda.launches
+    card = run_sweep(req, device=dev)
+    torch.cuda.synchronize()
+    assert claim_check_cuda.launches == before + 1
+    cpu = run_sweep(req, device="cpu")
+    for name in card.policies:
+        for f in ("items", "shed", "batches", "offered", "attempts", "delivered",
+                  "expired", "goodput", "dup_served", "claimed_popcount",
+                  "claimed_prefix", "undelivered"):
+            a, b = getattr(card[name], f).cpu(), getattr(cpu[name], f)
+            assert torch.equal(a, b), (name, f)
+        pop, items, shed = (
+            getattr(card[name], f) for f in ("claimed_popcount", "items", "shed")
+        )
+        assert torch.equal(pop, items + shed), name
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:

@@ -169,11 +169,11 @@ def test_arrival_processes_and_service_kinds_run(scenario, arrival, service):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(scenario="serving"), "Queue A, item 4"),
+        (dict(scenario="serving", shards=2), "Queue A, item 6"),
         (dict(scenario="tcp"), "Queue A, item 5"),
         (dict(shards=2), "Queue A, item 6"),
         (dict(prefix_impl="pallas"), "TPU route"),
-        (dict(scenario="queueing", service="HT"), "item 4"),
+        (dict(prefix_interpret=True), "TPU route"),
     ],
 )
 def test_unported_options_raise_by_name(kw, match):

@@ -1,4 +1,4 @@
-"""Where the port's fused forwarder sweep spends its time, on one GPU.
+"""Where the port's fused sweeps spend their time, on one GPU.
 
 Runs the main path of ``chip_smoke.py`` (the forwarder grid of
 ``benchmarks/jax_sweep.py``: 72 configs x ``--seeds`` seeds per
@@ -7,12 +7,18 @@ policy, all five policies, 2,000 packets per lane) twice:
 1. phase by phase, with a device synchronisation after each phase
    and the host clock around it: per-lane draws and queue views
    (``_lane_setup``), the claim scan, the post-scan scatter and
-   outputs, and the one done-prefix launch;
+   outputs, and the one claim-check launch;
 2. a window of claim steps of every segment under ``torch.profiler``
    (CPU + CUDA activities): device busy time (sum of kernel self
    times), its share of the window's wall clock, kernels and outermost
    ``aten`` operator calls per step, and the top kernels by device
    time.
+
+Then the serving grid of ``benchmarks/serving_sweep.py`` (48 configs x
+3 ``--seeds`` seeds per policy, 1,000 users per lane, diurnal arrivals,
+heavy-tailed sessions, admission and autoscale armed) the same two
+ways.  The profiler's first window also holds its own start-up, so
+read host time per step from the phase split.
 
 Usage (on a host with a CUDA device)::
 
@@ -35,7 +41,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.core import SweepRequest, lane_grid, run_sweep  # noqa: E402
 from repro_torch.core import torchplane as tp  # noqa: E402
-from repro_torch.core.policy import _fused_requests  # noqa: E402
+from repro_torch.core.policy import (  # noqa: E402
+    _fused_requests,
+    make_torch_policy,
+    torch_policies,
+)
 from repro_torch.kernels import ops  # noqa: E402
 
 AXES = {
@@ -44,6 +54,14 @@ AXES = {
     "deschedule_prob": [0.0, 5e-4, 5e-3],
 }
 N, W, MB, CHUNK = 2000, 4, 64, 64
+#: the serving grid of benchmarks/serving_sweep.py
+SERVING_AXES = {
+    "admit_limit": [16.0, 48.0, 96.0],
+    "scale_backlog": [12.0, 48.0],
+    "rate": [2.0, 3.0, 4.0, 5.0],
+    "slo_target": [20.0, 40.0],
+}
+SERVING_N, SERVING_MB = 1000, 32
 
 
 def _grid(n_seeds):
@@ -53,76 +71,59 @@ def _grid(n_seeds):
     return seeds, lane, {"rate": arrays["rate"]}
 
 
-def phases(dev, n_seeds) -> dict:
-    """Host-clock seconds of each phase, device synchronised between."""
-    seeds, lane, traffic = _grid(n_seeds)
-    reqs = _fused_requests(seeds, lane_params=lane, traffic_params=traffic)
-    out = dict(setup_s=0.0, scan_s=0.0, scatter_s=0.0, outputs_s=0.0, steps=0)
+def _tick(dev) -> float:
+    torch.cuda.synchronize(dev)
+    return time.perf_counter()
 
-    def tick():
-        torch.cuda.synchronize(dev)
-        return time.perf_counter()
 
-    segs = []
-    for req in reqs:
-        pol = tp._resolve_policy(req["policy"])
-        lanes = len(seeds)
-        params = tp._lane_tensors(
-            tp.default_lane_params(**req["lane_params"]), tp.LaneParams, lanes, dev
-        )
-        t0 = tick()
-        su = tp._lane_setup(
-            pol,
-            "udp",
-            "fwd",
-            N,
-            256,
-            W,
-            N + (-N % CHUNK),
-            tp._lane_tensors(
-                tp.default_traffic_params(**traffic), tp.TrafficParams, lanes, dev
-            ),
-            tp._lane_tensors(tp.default_fault_params(), tp.FaultParams, lanes, dev),
-            seeds,
-        )
-        t1 = tick()
+def phases(dev, segs, mb, n) -> dict:
+    """Host-clock seconds of each phase of the sweep over ``segs``
+    (``(policy, params, setup, serving params or None)``), the device
+    synchronised between: the claim scan, the post-scan scatter, the
+    outputs, and the one claim check over every segment."""
+    out = dict(scan_s=0.0, scatter_s=0.0, outputs_s=0.0, steps=0)
+    masks = []
+    for pol, params, su, sp in segs:
+        lanes = su.arr.shape[0]
+        t1 = _tick(dev)
         st = tp._init_state(lanes, W, dev)
         u_t, stall_t = su.u.t().contiguous(), su.stalls.t().contiguous()
+        drained = su.offered if sp is not None else n
         recs = []
-        steps = 0
         for c0 in range(0, su.u.shape[1], CHUNK):
-            if bool((st.halted | (st.items >= N)).all()):
+            if bool((st.halted | (st.items + st.shed >= drained)).all()):
                 break
             for s in range(c0, c0 + CHUNK):
-                recs.append(tp._claim_step(pol, MB, params, su, st, u_t[s], stall_t[s]))
-                steps += 1
-        t2 = tick()
+                rec = tp._claim_step(pol, mb, params, su, st, u_t[s], stall_t[s], sp)
+                recs.append(rec if sp is not None else rec[:5])
+        t2 = _tick(dev)
         rec = tp.ClaimRecord(*(torch.stack(x, dim=1) for x in zip(*recs)))
         done, claimed = tp._scatter_claims(rec, su.qid, su.rank, su.cumsvc)
-        t3 = tick()
-        segs.append(tp._segment_outputs(st, done, claimed, su.arr, N, False))
-        t4 = tick()
-        out["setup_s"] += t1 - t0
+        t3 = _tick(dev)
+        if sp is None:
+            tp._segment_outputs(st, done, su.arr, n, False)
+        else:
+            tp._serving_outputs(st, done, su, sp, tp.OverloadConfig(), False)
+        masks.append(claimed)
+        t4 = _tick(dev)
         out["scan_s"] += t2 - t1
         out["scatter_s"] += t3 - t2
         out["outputs_s"] += t4 - t3
-        out["steps"] += steps
-    t0 = tick()
-    words = torch.cat([o["words"] for o in segs])
-    limit = torch.full((words.shape[0],), N, dtype=torch.int32, device=dev)
-    ops.done_prefix_packed(words, limit, N)
-    out["prefix_s"] = tick() - t0
+        out["steps"] += len(recs)
+    t0 = _tick(dev)
+    ops.claim_check(torch.cat(masks), n)
+    out["claim_check_s"] = _tick(dev) - t0
     out["scan_ms_per_step"] = 1e3 * out["scan_s"] / max(out["steps"], 1)
     return out
 
 
-def profiled(dev, n_seeds, steps) -> dict:
-    """``torch.profiler`` over a window of ``steps`` claim steps of every
-    policy segment (the scan dominates ``run_s``; a trace of the whole
-    sweep holds ~10^6 events and takes longer than the sweep)."""
+def _forwarder_segments(dev, n_seeds) -> tuple:
+    """Every policy segment of the forwarder grid, ready to step, and the
+    host seconds their setups took (device synchronised)."""
     seeds, lane, traffic = _grid(n_seeds)
     reqs = _fused_requests(seeds, lane_params=lane, traffic_params=traffic)
     lanes = len(seeds)
+    t0 = _tick(dev)
     segs = []
     for req in reqs:
         pol = tp._resolve_policy(req["policy"])
@@ -143,14 +144,60 @@ def profiled(dev, n_seeds, steps) -> dict:
             tp._lane_tensors(tp.default_fault_params(), tp.FaultParams, lanes, dev),
             seeds,
         )
-        st = tp._init_state(lanes, W, dev)
+        segs.append((pol, params, su, None))
+    return segs, _tick(dev) - t0
+
+
+def _serving_segments(dev, n_seeds) -> tuple:
+    """Every policy segment of the serving grid, ready to step, and the
+    host seconds their setups took (device synchronised)."""
+    arrays, _ = lane_grid(SERVING_AXES, np.arange(n_seeds))
+    seeds = arrays.pop("__seeds__")
+    lanes = len(seeds)
+    traffic = tp.default_traffic_params(rate=arrays["rate"], session_alpha=1.8)
+    serving = tp.default_serving_params(
+        admit_limit=arrays["admit_limit"],
+        scale_backlog=arrays["scale_backlog"],
+        slo_target=arrays["slo_target"],
+        base_workers=2.0,
+    )
+    t0 = _tick(dev)
+    segs = []
+    for name in torch_policies():
+        pol = make_torch_policy(name)
+        sp = tp._lane_tensors(serving, tp.ServingParams, lanes, dev)
+        su = tp._lane_setup(
+            pol,
+            "diurnal",
+            "HT",
+            SERVING_N,
+            256,
+            W,
+            SERVING_N + (-SERVING_N % CHUNK),
+            tp._lane_tensors(traffic, tp.TrafficParams, lanes, dev),
+            tp._lane_tensors(tp.default_fault_params(), tp.FaultParams, lanes, dev),
+            seeds,
+            sparams=sp,
+        )
+        params = tp._lane_tensors(tp.default_lane_params(), tp.LaneParams, lanes, dev)
+        segs.append((pol, params, su, sp))
+    return segs, _tick(dev) - t0
+
+
+def profiled(dev, segs, mb, steps) -> dict:
+    """``torch.profiler`` over a window of ``steps`` claim steps of every
+    policy segment (the scan dominates ``run_s``; a trace of the whole
+    sweep holds ~10^6 events and takes longer than the sweep)."""
+    runs = []
+    for pol, params, su, sp in segs:
+        st = tp._init_state(su.arr.shape[0], W, dev)
         u_t, stall_t = su.u.t().contiguous(), su.stalls.t().contiguous()
-        segs.append((pol, params, su, st, u_t, stall_t))
+        runs.append((pol, params, su, sp, st, u_t, stall_t))
 
     def window(first):
-        for pol, params, su, st, u_t, stall_t in segs:
+        for pol, params, su, sp, st, u_t, stall_t in runs:
             for s in range(first, first + steps):
-                tp._claim_step(pol, MB, params, su, st, u_t[s], stall_t[s])
+                tp._claim_step(pol, mb, params, su, st, u_t[s], stall_t[s], sp)
 
     window(0)  # warm
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -167,7 +214,7 @@ def profiled(dev, n_seeds, steps) -> dict:
         and getattr(e, "self_device_time_total", 0) > 0
     ]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    n_steps = steps * len(segs)
+    n_steps = steps * len(runs)
     aten = [e for e in prof.events() if e.name.startswith("aten::")]
     outer = [
         e
@@ -195,7 +242,9 @@ def profiled(dev, n_seeds, steps) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seeds", type=int, default=14)
+    ap.add_argument(
+        "--seeds", type=int, default=14, help="forwarder seeds (serving: 3x)"
+    )
     ap.add_argument("--profile-steps", type=int, default=32)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -210,11 +259,19 @@ def main() -> int:
         check=True,
     ).stdout.strip()
     run_sweep(SweepRequest(seeds=np.arange(2), n_packets=64), device=dev)  # warm
+    fwd, setup_s = _forwarder_segments(dev, args.seeds)
     res = dict(
         card=card,
         lanes=5 * 72 * args.seeds,
-        phases=phases(dev, args.seeds),
-        profile=profiled(dev, args.seeds, args.profile_steps),
+        phases=dict(setup_s=setup_s, **phases(dev, fwd, MB, N)),
+        profile=profiled(dev, fwd, MB, args.profile_steps),
+    )
+    del fwd
+    srv, setup_s = _serving_segments(dev, args.seeds * 3)
+    res["serving"] = dict(
+        lanes=5 * 48 * args.seeds * 3,
+        phases=dict(setup_s=setup_s, **phases(dev, srv, SERVING_MB, SERVING_N)),
+        profile=profiled(dev, srv, SERVING_MB, args.profile_steps),
     )
     text = json.dumps(res, indent=1)
     print(text)
