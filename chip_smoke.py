@@ -13,7 +13,9 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    spills) per kernel;
 3. the packed done-prefix kernel on both its routes against their plain
    PyTorch versions on the card, exactly: on packed words (the route
-   the TCP engine will take), and as the claim check the sweeps run
+   the TCP engine takes, also at the TCP grid's [10080, 10] words and
+   the SACK leg's [1120, 10], where it is timed), and as the claim
+   check the lane engine's sweeps run
    (pack + popcount + prefix of the bool claim masks in one launch) on
    widths 1-4,097 with rows of ones and zeros, a first zero at every
    word edge +-1, limits below and above the run, row starts 1, 3 and
@@ -72,6 +74,18 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    x 2 rates x 2 loss rates x 8 seeds x 5 policies, 400 requests, up to
    3 copies each) in one fused call: popcount == delivered + expired +
    shed on every lane, one claim check, goodput per policy and mode;
+4c. the TCP section of ``benchmarks/jax_sweep.py`` at full size through
+   ``run_sweep(scenario="tcp")``: batch x deschedule_prob x link_pps x
+   pkt_budget x 14 seeds x 5 policies = 10,080 lanes, two flows of 128
+   packets starting 37 apart, 4 workers, max_batch 64 -- on every lane
+   popcount == done prefix == items == sends and every flow done, one
+   launch of the words route and none of the claim check -- then its
+   SACK leg (16 configs x 14 seeds x 5 policies = 1,120 lanes, link
+   0.85, random loss 0.03 with drop-once every 10th segment on the
+   loss-free configs): the same checks and nothing undelivered;
+   ``compile_s``, ``run_s``, lane-points/s, FCT p50/p99 and
+   retransmissions per lane per policy, and corec / scaleout FCT p99
+   under random loss beside the reference benchmark's 1.03 band;
 5. smaller queueing (M service) and bursty forwarder sweeps;
 6. compacted engine == per-claim reference engine on the card, two
    runs of one request identical, and the card's results against the
@@ -188,6 +202,32 @@ OVERLOAD_CAPACITY = 400
 OVERLOAD_TIMEOUT = 2.0
 OVERLOAD_NAIVE_RETRIES = 2
 OVERLOAD_BATCH = 16
+#: the TCP section of benchmarks/jax_sweep.py: batch x deschedule_prob x
+#: link_pps x pkt_budget = 144 configs x 14 seeds x 5 policies, two flows
+#: of 128 packets starting 37 apart; then its SACK leg (16 configs)
+#: under random loss, with deterministic drop-once control rows
+TCP_AXES = {
+    "batch": [1, 2, 4, 8, 16, 32],
+    "deschedule_prob": [0.0, 5e-4, 5e-3],
+    "link_pps": [0.55, 0.85, 1.1, 1.35],
+    "pkt_budget": [1 << 30, 48],
+}
+TCP_SACK_AXES = {
+    "batch": [1, 4, 16, 32],
+    "deschedule_prob": [0.0, 5e-3],
+    "loss_rate": [0.0, 0.03],
+}
+TCP_FLOW_PKTS = (128, 128)
+TCP_FLOW_START = (0.0, 37.0)
+SACK_LOSS_EVERY = 10
+SACK_LINK_PPS = 0.85
+#: the reference benchmark's gate on corec / scaleout FCT p99 under
+#: random loss (the paper's impairment shape), printed beside the ratio
+IMPAIRMENT_P99_BAND = 1.03
+#: the TCP grid's claim bitmaps: [lanes, ceil(tx_budget / 32)] words,
+#: tx_budget = 256 + 256 // 8 + 32
+TCP_TX_BUDGET = 320
+TCP_WORDS = (5 * 144 * N_SEEDS, -(-TCP_TX_BUDGET // 32))
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 op/s,
 #: dense bf16 tensor-core op/s
 HBM_BYTES_PER_S = 3.35e12
@@ -403,27 +443,30 @@ def _median_ms(fn, reps: int = 200) -> tuple:
 
 def phase_kernel(dev) -> dict:
     max_err = 0
-    for n_bits in (1, 31, 32, 33, 1000, 2000, 65536):
-        for rows in (1, 7, 5040):
-            w, lim = _bitmaps(n_bits, rows, seed=n_bits * 7 + rows, device=dev)
-            got = done_prefix_packed_cuda(w, lim, n_bits)
-            want = kref.done_prefix_packed_ref(w, lim, n_bits)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"done_prefix_packed: kernel != plain at n_bits={n_bits}, "
-                    f"rows={rows} (max abs err {err})"
-                )
-            max_err = max(max_err, err)
-    print("phase 3: done_prefix_packed == plain on 21 cases (exact)")
-    # timing at the main path's shape: one row per lane, 2000 bits
-    rows, n_bits = 5 * 72 * N_SEEDS, N_PACKETS
+    cases = [(n, r) for n in (1, 31, 32, 33, 1000, 2000, 65536) for r in (1, 7, 5040)]
+    # the TCP sweeps' shapes: the grid's and the SACK leg's lanes
+    cases += [(TCP_TX_BUDGET, TCP_WORDS[0]), (TCP_TX_BUDGET, 5 * 16 * N_SEEDS)]
+    for n_bits, rows in cases:
+        w, lim = _bitmaps(n_bits, rows, seed=n_bits * 7 + rows, device=dev)
+        got = done_prefix_packed_cuda(w, lim, n_bits)
+        want = kref.done_prefix_packed_ref(w, lim, n_bits)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"done_prefix_packed: kernel != plain at n_bits={n_bits}, "
+                f"rows={rows} (max abs err {err})"
+            )
+        max_err = max(max_err, err)
+    print(f"phase 3: done_prefix_packed == plain on {len(cases)} cases (exact)")
+    # timing at the TCP grid's shape (phase 4c): one row per lane
+    rows, n_bits = TCP_WORDS[0], TCP_TX_BUDGET
     w, lim = _bitmaps(n_bits, rows, seed=1, device=dev)
     ms, paced_ms = _median_ms(lambda: done_prefix_packed_cuda(w, lim, n_bits))
     plain_ms, plain_paced = _median_ms(
         lambda: kref.done_prefix_packed_ref(w, lim, n_bits)
     )
+    dev_us, dev_launches = _window(lambda: done_prefix_packed_cuda(w, lim, n_bits))
     nw = w.shape[1]
     moved = rows * nw * 4 + rows * 4 + rows * 4  # words + limit in, out
     ops = rows * nw * 3  # not, find-first-set, min per word
@@ -432,7 +475,8 @@ def phase_kernel(dev) -> dict:
     print(
         f"phase 3: [{rows}, {nw}] words, n_bits={n_bits}: device median kernel "
         f"{ms:.5f} ms, plain {plain_ms:.5f} ms; host-paced kernel "
-        f"{paced_ms:.5f} ms, plain {plain_paced:.5f} ms; bound "
+        f"{paced_ms:.5f} ms, plain {plain_paced:.5f} ms; profiler {dev_us:.3f} us "
+        f"and {dev_launches:g} launches a call; bound "
         f"{max(bytes_ms, ops_ms):.6f} ms ({moved} bytes)"
     )
     return dict(
@@ -447,6 +491,7 @@ def phase_kernel(dev) -> dict:
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None,
+        device_us=dev_us,
     )
 
 
@@ -576,11 +621,14 @@ def phase_claim_check(dev) -> dict:
 
 def _packed_row(words: dict, claim: dict, sweeps: dict) -> dict:
     """Row 1 of the kernel line: the packed done-prefix on both routes.
-    The main path runs the claim check (its numbers at the forwarder
-    grid's shape head the row); the words route keeps its own numbers
-    and launch count."""
+    The lane engine's sweeps run the claim check (its numbers at the
+    forwarder grid's shape head the row), the TCP sweeps the words route
+    (its numbers at the TCP grid's shape and its launch count under
+    ``routes``)."""
     fwd = claim["forwarder"]
     launches = {k: sum(v[k] for v in sweeps.values()) for k in ("claim_check", "words")}
+    words = dict(words)
+    words_us = words.pop("device_us")
     return dict(
         words,
         launches=launches["claim_check"] + launches["words"],
@@ -597,9 +645,11 @@ def _packed_row(words: dict, claim: dict, sweeps: dict) -> dict:
             ),
             words=dict(
                 launches=launches["words"],
+                per_sweep={k: v["words"] for k, v in sweeps.items()},
                 ms=words["ms"],
                 plain_ms=words["plain_ms"],
                 bound_ms=words["bound_ms"],
+                device_us=words_us,
             ),
         ),
     )
@@ -657,14 +707,17 @@ def phase_main(dev) -> dict:
     return launches
 
 
-def _sweep_launches(what: str) -> dict:
-    """The packed prefix kernel's launches on a sweep just run: one claim
-    check, and the words route never."""
+def _sweep_launches(what: str, route: str = "claim_check") -> dict:
+    """The packed prefix kernel's launches on a sweep just run: one on
+    ``route`` (the lane engine's claim check, or the TCP engine's words
+    route) and none on the other."""
     got = dict(
         claim_check=claim_check_cuda.launches, words=done_prefix_packed_cuda.launches
     )
-    if got != dict(claim_check=1, words=0):
-        raise AssertionError(f"{what}: launches {got}, want one claim check only")
+    want = dict(claim_check=0, words=0)
+    want[route] = 1
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
     return got
 
 
@@ -812,6 +865,105 @@ def phase_overload_grid(dev) -> dict:
             f"({nv / max(h, 1.0):.4f}x)  graceful {gr:.4f} ({gr / max(h, 1.0):.4f}x)"
         )
     return launches
+
+
+def _tcp_sweep(dev, axes, what: str, **tcp_kw):
+    """One TCP sweep of ``axes`` x 14 seeds x 5 policies through
+    run_sweep(scenario="tcp"), the counts set to 0 before it and read
+    after: on every lane popcount == prefix == items == sends and every
+    flow done, one words-route launch.  Prints its timings; returns
+    (sweep, launches, lanes per policy)."""
+    arrays, _ = lane_grid(axes, np.arange(N_SEEDS))
+    seeds = arrays.pop("__seeds__")
+    lane = {k: arrays.pop(k) for k in LANE_KNOBS}
+    req = SweepRequest(
+        scenario="tcp",
+        seeds=seeds,
+        lane_params=lane,
+        tcp_params=dict(arrays, **tcp_kw),
+        n_packets=np.asarray(TCP_FLOW_PKTS),
+        t_start=np.asarray(TCP_FLOW_START),
+        n_workers=N_WORKERS,
+        max_batch=MAX_BATCH,
+    )
+    timings: dict = {}
+    claim_check_cuda.launches = 0
+    done_prefix_packed_cuda.launches = 0
+    sweep = run_sweep(req, timings=timings, device=dev)
+    launches = _sweep_launches(f"phase 4c {what}", route="words")
+    for name, res in sweep.lanes.items():
+        sends = res.sends
+        for f in ("claimed_popcount", "claimed_prefix", "items"):
+            if not bool((getattr(res, f) == sends).all()):
+                raise AssertionError(f"phase 4c {what}/{name}: {f} != sends")
+        if not bool(res.done.all()):
+            raise AssertionError(f"phase 4c {what}/{name}: a flow did not finish")
+    total = len(seeds) * len(sweep.lanes)
+    compile_s, run_s = timings["compile_s"], timings["run_s"]
+    n_words, n_claim = launches["words"], launches["claim_check"]
+    print(
+        f"phase 4c: {what}, {total} lanes x {sum(TCP_FLOW_PKTS)} packets (2 "
+        f"flows), 5 policies fused: compile_s={compile_s:.4f} run_s={run_s:.4f} "
+        f"lane-points/s={total / run_s:.2f}; exactly-once and complete on every "
+        f"lane; done_prefix_packed (words route) launches={n_words}, "
+        f"claim_check launches={n_claim}"
+    )
+    return sweep, launches, len(seeds)
+
+
+def _fct_line(what, name, res, lanes, extra="") -> None:
+    fct = res.fct.cpu().numpy()
+    p50, p99 = np.percentile(fct, 50), np.percentile(fct, 99)
+    retx = float(res.retransmissions.sum()) / lanes
+    print(
+        f"phase 4c {what}: {name:15s} FCT p50 {p50:.4f}  p99 {p99:.4f}  "
+        f"retx/lane {retx:.4f}{extra}"
+    )
+
+
+def phase_tcp_grid(dev) -> dict:
+    """4c: the TCP section of benchmarks/jax_sweep.py at full size through
+    run_sweep(scenario="tcp"): the grid (10,080 lanes), then the SACK leg
+    (1,120 lanes) under random loss with drop-once control rows, which
+    must also leave nothing undelivered; FCT p50/p99 and retransmissions
+    per lane per policy, and corec / scaleout FCT p99 under random loss
+    beside the reference benchmark's band.  Returns each sweep's
+    launches."""
+    out = {}
+    sweep, out["tcp"], lanes = _tcp_sweep(dev, TCP_AXES, "TCP grid")
+    if lanes * len(sweep.lanes) != TCP_WORDS[0]:
+        raise AssertionError(f"TCP grid ran {lanes} lanes a policy")
+    for name, res in sweep.lanes.items():
+        _fct_line("grid", name, res, lanes)
+    del sweep
+    arrays, _ = lane_grid(TCP_SACK_AXES, np.arange(N_SEEDS))
+    loss = arrays["loss_rate"]
+    every = np.where(loss == 0.0, float(SACK_LOSS_EVERY), 0.0)
+    sweep, out["tcp_sack"], lanes = _tcp_sweep(
+        dev,
+        TCP_SACK_AXES,
+        f"SACK leg (random loss {max(loss):g}, drop-once 1/{SACK_LOSS_EVERY})",
+        sack=True,
+        link_pps=SACK_LINK_PPS,
+        loss_every=every,
+    )
+    random = torch.as_tensor(loss > 0.0, device=dev)
+    pkts = torch.as_tensor(TCP_FLOW_PKTS, device=dev)
+    p99 = {}
+    for name, res in sweep.lanes.items():
+        undelivered = int((pkts - res.delivered).sum())
+        if undelivered:
+            raise AssertionError(f"phase 4c sack/{name}: {undelivered} undelivered")
+        p99[name] = float(np.percentile(res.fct[random].cpu().numpy(), 99))
+        extra = f"  FCT p99 random {p99[name]:.4f}  undelivered {undelivered}"
+        _fct_line("sack", name, res, lanes, extra)
+    ratio = p99["corec"] / p99["scaleout"]
+    side = "within" if ratio <= IMPAIRMENT_P99_BAND else "outside"
+    print(
+        f"phase 4c: corec / scaleout FCT p99 under random loss {ratio:.6f} "
+        f"(the reference benchmark's band: <= {IMPAIRMENT_P99_BAND}; {side})"
+    )
+    return out
 
 
 def phase_other_traffic(dev) -> None:
@@ -2185,6 +2337,7 @@ def main() -> int:
         "forwarder": phase_main(dev),
         "serving": phase_serving_grid(dev),
         "overload": phase_overload_grid(dev),
+        **phase_tcp_grid(dev),
     }
     kernel = _packed_row(kernel, claim, sweeps)
     phase_other_traffic(dev)

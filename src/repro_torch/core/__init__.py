@@ -12,6 +12,7 @@ from .policy import (
 )
 from .servingtorch import sweep_serving_torch
 from .sweep import SweepRequest, SweepResult, run_sweep
+from .tcptorch import TcpLaneResult, run_tcp_lanes, run_tcp_lanes_fused
 from .torchplane import LaneResult, lane_grid
 
 __all__ = [
@@ -25,4 +26,7 @@ __all__ = [
     "sweep_serving_torch",
     "LaneResult",
     "lane_grid",
+    "TcpLaneResult",
+    "run_tcp_lanes",
+    "run_tcp_lanes_fused",
 ]

@@ -3,9 +3,10 @@
 The port's own copy of ``repro.core.sweep``'s request and result types,
 field for field, and :func:`run_sweep` for the ``forwarder``,
 ``queueing`` and ``serving`` scenarios on
-:mod:`repro_torch.core.torchplane`.  The scenario and options not
-ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+:mod:`repro_torch.core.torchplane` and the ``tcp`` scenario on
+:mod:`repro_torch.core.tcptorch`.  The option not ported yet (lane
+sharding) raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 
 ===========  =========================================================
 forwarder    open-loop L3 forwarder (sec 4.3.1): per-size lognormal
@@ -13,6 +14,12 @@ forwarder    open-loop L3 forwarder (sec 4.3.1): per-size lognormal
              MAWI mix / diurnal).
 queueing     M/G/N vs N x M/G/1 (sec 3.2): Poisson arrivals, ``service``
              picks M / D / LN / HT.
+tcp          closed-loop TCP (the paper's worst case, one large flow
+             and its reordering): ``n_packets`` is the flow layout (an
+             int or per-flow counts), ``t_start`` per-flow start times;
+             FCT, retransmissions and exactly-once per lane;
+             ``tcp_params`` may arm the SACK scoreboard (``sack``) and
+             loss (``loss_rate``, ``loss_every``).
 serving      open-loop serving: ``n_packets`` users per lane cut at the
              ``serving_params`` horizon, heavy-tailed (HT) sessions,
              admission, autoscale and SLO attainment; the overload
@@ -95,20 +102,15 @@ class SweepResult:
 
 
 def _check_ported(req: SweepRequest) -> None:
-    if req.scenario == "tcp":
-        raise NotImplementedError(
-            "scenario 'tcp' is not ported yet: ROADMAP.md Queue A, item 5 "
-            "(TCP lane engine)"
-        )
-    if req.scenario not in ("forwarder", "queueing", "serving"):
+    if req.scenario not in ("forwarder", "queueing", "tcp", "serving"):
         raise ValueError(
             f"unknown scenario {req.scenario!r}; "
             "expected forwarder | queueing | tcp | serving"
         )
     if req.shards != 1:
         raise NotImplementedError(
-            "shards != 1 is not ported yet: ROADMAP.md Queue A, item 6 "
-            "(lane sharding)"
+            "shards != 1 is not ported yet: ROADMAP.md Queue A, item 6 (A6, "
+            "lane sharding)"
         )
     if req.prefix_impl == "pallas" or req.prefix_interpret:
         raise NotImplementedError(
@@ -134,11 +136,47 @@ def run_sweep(
     ``"cpu"`` for the plain versions.  ``timings`` (a dict, filled in
     place and echoed on the result) reports ``compile_s`` / ``run_s``.
     """
-    from .torchplane import _fused_lanes
-
     req = request
     _check_ported(req)
     names = list(req.policies) if req.policies is not None else torch_policies()
+    if req.scenario == "tcp":
+        from .tcptorch import run_tcp_lanes_fused
+
+        reqs = _fused_requests(
+            req.seeds,
+            lane_params=dict(req.lane_params),
+            policies=names,
+            tcp_params=dict(req.tcp_params),
+            fault_params=dict(req.fault_params),
+        )
+        results = run_tcp_lanes_fused(
+            reqs,
+            n_pkts=req.n_packets,
+            t_start=req.t_start,
+            n_workers=req.n_workers,
+            max_batch=req.max_batch,
+            tx_budget=req.tx_budget,
+            n_steps=req.n_steps,
+            engine=req.engine,
+            chunk=req.chunk,
+            prefix_impl=req.prefix_impl,
+            timings=timings,
+            device=device,
+        )
+    else:
+        results = _lane_sweep(req, names, timings, device)
+    return SweepResult(
+        request=replace(req, policies=tuple(names)),
+        policies=tuple(names),
+        lanes=dict(zip(names, results)),
+        timings=dict(timings or {}),
+    )
+
+
+def _lane_sweep(req: SweepRequest, names, timings, device) -> list:
+    """The forwarder, queueing and serving scenarios on the lane engine."""
+    from .torchplane import _fused_lanes
+
     serving = req.scenario == "serving"
     if req.scenario == "queueing":
         workload, service = "udp", req.service or "M"
@@ -155,7 +193,7 @@ def run_sweep(
     if serving:
         for r in reqs:
             r["serving_params"] = _serving_knobs(req, r["policy"])
-    results = _fused_lanes(
+    return _fused_lanes(
         reqs,
         workload=workload,
         service=service,
@@ -171,10 +209,4 @@ def run_sweep(
         return_times=req.return_times,
         timings=timings,
         device=device,
-    )
-    return SweepResult(
-        request=replace(req, policies=tuple(names)),
-        policies=tuple(names),
-        lanes=dict(zip(names, results)),
-        timings=dict(timings or {}),
     )

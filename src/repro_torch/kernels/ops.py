@@ -46,6 +46,7 @@ __all__ = [
     "done_prefix_packed",
     "claim_check",
     "pack_bits_u32",
+    "first_set_bits",
     "IMPLS",
 ]
 
@@ -388,3 +389,29 @@ def pack_bits_u32(bits: torch.Tensor) -> torch.Tensor:
     )
     w = (b * shifts).sum(dim=-1)  # < 2**32: no overflow in int64
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def first_set_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the ``k`` lowest set bits of packed rows.
+
+    ``words`` is ``[..., n_words]`` in the layout of :func:`pack_bits_u32`
+    (the int32 bit pattern, or int64 holding the low 32 bits); returns
+    ``[..., k]`` int32 positions in ascending order, padded with ``-1``
+    where a row has fewer than ``k`` set bits -- ``repro.kernels.ops.
+    first_set_bits`` on every row at once.  Where the reference peels
+    one bit a round (``k`` rounds of find-lowest and clear), this unpacks
+    the row, ranks its set bits with a running count and scatters the
+    first ``k`` to their ranks: a handful of launches whatever ``k``.
+    """
+    *lead, n_words = words.shape
+    dev = words.device
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((words.to(torch.int64) & ref.MASK32)[..., None] >> shifts) & 1
+    bits = bits.reshape(*lead, n_words * 32)
+    rank = torch.cumsum(bits, dim=-1) - 1
+    keep = (bits == 1) & (rank < k)
+    pos = torch.arange(n_words * 32, dtype=torch.int64, device=dev).expand_as(bits)
+    # bits past the k-th, and clear bits, all write -1 to a dump column
+    out = torch.full((*lead, k + 1), -1, dtype=torch.int64, device=dev)
+    out.scatter_(-1, torch.where(keep, rank, k), torch.where(keep, pos, -1))
+    return out[..., :k].to(torch.int32)

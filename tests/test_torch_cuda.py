@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SweepRequest, run_sweep
+from repro_torch.core import SweepRequest, run_sweep, tcptorch
+from repro_torch.core.policy import _fused_requests, make_torch_policy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.doneprefix import (
@@ -32,6 +33,7 @@ from repro_torch.kernels.doneprefix import (
     claim_vector_bytes,
     done_prefix_batch_cuda,
     done_prefix_batch_mapped,
+    done_prefix_packed_cuda,
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
@@ -412,6 +414,90 @@ def test_cuda_serving_sweep_equals_cpu_on_integers():
             getattr(card[name], f) for f in ("claimed_popcount", "items", "shed")
         )
         assert torch.equal(pop, items + shed), name
+
+
+#: a small TCP layout: two flows starting 37 apart
+TCP_PKTS, TCP_START = np.array([40, 40]), np.array([0.0, 37.0], np.float32)
+TCP_TB = 80 + 80 // 8 + 32  # the default transmission budget
+TCP_STEPS = -(-(3 * TCP_TB + 2 + 64) // 64) * 64
+#: SACK on, random loss, worker 0 crashes at t = 150
+TCP_KNOBS = dict(
+    tcp_params=dict(sack=True, loss_rate=0.03),
+    fault_params=dict(crash_t=150.0, crash_worker=0.0),
+)
+
+
+def _tcp_cpu_setup(seeds):
+    """The port's own draws, made on the CPU, as a setup either device can
+    take (``exp`` may round differently on the card)."""
+    tp = tcptorch.default_tcp_params()
+    tcp = tcptorch._lane_tensors(tp, tcptorch.TcpParams, len(seeds), "cpu")
+    su = tcptorch._tcp_draws(tcp, seeds, TCP_TB, TCP_STEPS)
+    return {k: getattr(su, k).numpy() for k in ("svc_pad", "u", "stalls", "lseed")}
+
+
+@pytest.mark.cuda
+def test_cuda_tcp_sweep_equals_cpu_on_integers():
+    """One small TCP sweep, SACK on, random loss and a crashed worker, on
+    the card and on the CPU from the same draws: every integer output and
+    the FCTs agree, and the card's exactly-once check is one launch of the
+    words route (and none of the claim check)."""
+    dev = _card()
+    seeds = np.arange(4)
+    reqs = _fused_requests(seeds, **TCP_KNOBS)
+    consts = _tcp_cpu_setup(seeds)
+    out = {}
+    for where in (dev, "cpu"):
+        setups = [tcptorch.tcp_setups_from_reference(consts, where) for _ in reqs]
+        before = (done_prefix_packed_cuda.launches, claim_check_cuda.launches)
+        out[str(where)] = tcptorch.run_tcp_lanes_fused(
+            reqs, n_pkts=TCP_PKTS, t_start=TCP_START, device=where, setups=setups
+        )
+        if where == dev:
+            torch.cuda.synchronize()
+            after = (done_prefix_packed_cuda.launches, claim_check_cuda.launches)
+            assert after == (before[0] + 1, before[1])
+    for req, card, cpu in zip(reqs, out[str(dev)], out["cpu"]):
+        for f in tcptorch.TcpLaneResult._fields:
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            assert torch.equal(a, b), (req["policy"], f)
+        # every claimed bit is a claimed item; a lane with a stranded queue
+        # (a flow pinned to the crashed worker) leaves holes in the prefix
+        assert torch.equal(card.claimed_popcount, card.items), req["policy"]
+        drained = card.done.all(dim=1)
+        assert torch.equal(card.claimed_prefix[drained], card.sends[drained])
+        assert int(card.retransmissions.sum()) > 0, req["policy"]
+    # static steering strands flow 0 (RSS queue 0) on the crashed worker;
+    # stealing does not
+    card = {r["policy"]: res for r, res in zip(reqs, out[str(dev)])}
+    assert not bool(card["scaleout"].done[:, 0].any())
+    assert bool(card["hybrid"].done.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sack", [False, True])
+def test_cuda_tcp_step_makes_no_host_sync(sack):
+    """A few steps of every policy's TCP step under
+    ``set_sync_debug_mode("error")``: no device-to-host sync inside."""
+    dev = _card()
+    seeds = np.arange(8)
+    tp = tcptorch.default_tcp_params(loss_rate=0.03)
+    for name in ("corec", "scaleout", "locked", "hybrid", "adaptive-batch"):
+        c, params, tcp, su, st = tcptorch._segment(
+            make_torch_policy(name), seeds, tcptorch.tcp_lane_defaults(),
+            dict(tp), tcptorch.default_fault_params(), sack, TCP_PKTS,
+            TCP_START, 4, 64, TCP_TB, TCP_STEPS, 32, dev,
+        )
+        u, stalls = su.u.t().contiguous(), su.stalls.t().contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for s in range(24):
+                tcptorch._tcp_step(c, params, tcp, su, st, u[s], stalls[s])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert int(st["nsend"].sum()) > 0 and int(st["batches"].sum()) > 0, name
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:

@@ -170,7 +170,7 @@ def test_arrival_processes_and_service_kinds_run(scenario, arrival, service):
     "kw,match",
     [
         (dict(scenario="serving", shards=2), "Queue A, item 6"),
-        (dict(scenario="tcp"), "Queue A, item 5"),
+        (dict(scenario="tcp", shards=2), "Queue A, item 6"),
         (dict(shards=2), "Queue A, item 6"),
         (dict(prefix_impl="pallas"), "TPU route"),
         (dict(prefix_interpret=True), "TPU route"),
@@ -285,6 +285,14 @@ def test_port_loads_neither_jax_nor_repro():
             SweepRequest(seeds=np.arange(2), n_packets=64), device="cpu"
         )
         assert (res["corec"].claimed_prefix.numpy() == 64).all()
+        tcp = run_sweep(
+            SweepRequest(scenario="tcp", seeds=np.arange(2), n_packets=[12, 12],
+                         t_start=[0.0, 37.0], tcp_params=dict(sack=True)),
+            device="cpu",
+        )
+        assert all(bool(r.done.all()) for r in tcp.lanes.values())
+        assert all(bool((r.claimed_prefix == r.sends).all())
+                   for r in tcp.lanes.values())
         from repro_torch.config import ArchConfig
         from repro_torch.serving import EngineConfig, InferenceEngine, Request
         cfg = ArchConfig("t", "dense", n_layers=1, d_model=32, n_heads=2,

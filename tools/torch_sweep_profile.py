@@ -20,9 +20,18 @@ heavy-tailed sessions, admission and autoscale armed) the same two
 ways.  The profiler's first window also holds its own start-up, so
 read host time per step from the phase split.
 
+``--scenario tcp`` profiles the TCP section of ``benchmarks/jax_sweep.py``
+instead (``chip_smoke.py`` phase 4c): the grid (144 configs x
+``--seeds`` seeds per policy, two flows of 128 packets) and its SACK
+leg (16 configs, random loss and drop-once control rows), each phase
+by phase (per-lane draws and state, the batched-event scan to the
+all-quiet chunk, the outputs, the one words-route launch of the
+exactly-once check) and under the profiler.
+
 Usage (on a host with a CUDA device)::
 
     PYTHONPATH=src python3 tools/torch_sweep_profile.py --out prof.json
+    PYTHONPATH=src python3 tools/torch_sweep_profile.py --scenario tcp
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.core import SweepRequest, lane_grid, run_sweep  # noqa: E402
+from repro_torch.core import tcptorch as tt  # noqa: E402
 from repro_torch.core import torchplane as tp  # noqa: E402
 from repro_torch.core.policy import (  # noqa: E402
     _fused_requests,
@@ -62,6 +72,22 @@ SERVING_AXES = {
     "slo_target": [20.0, 40.0],
 }
 SERVING_N, SERVING_MB = 1000, 32
+#: the TCP section of benchmarks/jax_sweep.py and its SACK leg
+TCP_AXES = {
+    "batch": [1, 2, 4, 8, 16, 32],
+    "deschedule_prob": [0.0, 5e-4, 5e-3],
+    "link_pps": [0.55, 0.85, 1.1, 1.35],
+    "pkt_budget": [1 << 30, 48],
+}
+TCP_SACK_AXES = {
+    "batch": [1, 4, 16, 32],
+    "deschedule_prob": [0.0, 5e-3],
+    "loss_rate": [0.0, 0.03],
+}
+TCP_PKTS = np.array([128, 128])
+TCP_START = np.array([0.0, 37.0], np.float32)
+TCP_TB = 256 + 256 // 8 + 32  # the default transmission budget
+TCP_STEPS = -(-(3 * TCP_TB + 2 + 64) // CHUNK) * CHUNK
 
 
 def _grid(n_seeds):
@@ -199,7 +225,14 @@ def profiled(dev, segs, mb, steps) -> dict:
             for s in range(first, first + steps):
                 tp._claim_step(pol, mb, params, su, st, u_t[s], stall_t[s], sp)
 
-    window(0)  # warm
+    return _window(dev, window, steps, len(runs))
+
+
+def _window(dev, window, steps: int, n_segs: int) -> dict:
+    """Run ``window(0)`` to warm up, then ``window(steps)`` under the
+    profiler: device busy time and share, kernels and outermost ``aten``
+    calls per step, the top kernels."""
+    window(0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -214,7 +247,7 @@ def profiled(dev, segs, mb, steps) -> dict:
         and getattr(e, "self_device_time_total", 0) > 0
     ]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    n_steps = steps * len(runs)
+    n_steps = steps * n_segs
     aten = [e for e in prof.events() if e.name.startswith("aten::")]
     outer = [
         e
@@ -240,12 +273,97 @@ def profiled(dev, segs, mb, steps) -> dict:
     )
 
 
+def _tcp_segments(dev, n_seeds: int, sack: bool) -> tuple:
+    """Every policy segment of the TCP grid (or its SACK leg), ready to
+    step, and the host seconds their draws and states took."""
+    arrays, _ = lane_grid(TCP_SACK_AXES if sack else TCP_AXES, np.arange(n_seeds))
+    seeds = arrays.pop("__seeds__")
+    lane = {k: arrays.pop(k) for k in ("batch", "deschedule_prob")}
+    if sack:
+        every = np.where(arrays["loss_rate"] == 0.0, 10.0, 0.0)
+        arrays.update(link_pps=0.85, loss_every=every)
+    t0 = _tick(dev)
+    segs = []
+    for req in _fused_requests(seeds, lane_params=lane):
+        segs.append(
+            tt._segment(
+                make_torch_policy(req["policy"]),
+                seeds,
+                tt.tcp_lane_defaults(**req["lane_params"]),
+                tt.default_tcp_params(**arrays),
+                tt.default_fault_params(),
+                sack,
+                TCP_PKTS,
+                TCP_START,
+                W,
+                MB,
+                TCP_TB,
+                TCP_STEPS,
+                32,
+                dev,
+            )
+        )
+    return segs, _tick(dev) - t0
+
+
+def tcp_phases(dev, segs) -> dict:
+    """Host-clock seconds of each phase of the TCP sweep over ``segs``,
+    the device synchronised between: the scan (chunks of CHUNK steps
+    until every lane is quiet, as ``_run_segment``), the outputs, and the
+    one words-route launch over every segment's claim bitmaps."""
+    out = dict(scan_s=0.0, outputs_s=0.0, steps=0)
+    words = []
+    for c, params, tcp, su, st in segs:
+        u_t, stall_t = su.u.t().contiguous(), su.stalls.t().contiguous()
+        t1 = _tick(dev)
+        for c0 in range(0, TCP_STEPS, CHUNK):
+            if bool(st["quiet"].all()):
+                break
+            for s in range(c0, c0 + CHUNK):
+                tt._tcp_step(c, params, tcp, su, st, u_t[s], stall_t[s])
+                out["steps"] += 1
+        t2 = _tick(dev)
+        o = tt._tcp_outputs(st, su, c.t_start, c.f_cnt, c.max_pkts, TCP_TB)
+        words.append(o["words"])
+        out["outputs_s"] += _tick(dev) - t2
+        out["scan_s"] += t2 - t1
+    t0 = _tick(dev)
+    w = torch.cat(words)
+    w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+    ops.done_prefix_packed(w, torch.full((w.shape[0],), TCP_TB, device=dev), TCP_TB)
+    out["prefix_s"] = _tick(dev) - t0
+    out["scan_ms_per_step"] = 1e3 * out["scan_s"] / max(out["steps"], 1)
+    return out
+
+
+def tcp_profiled(dev, n_seeds: int, sack: bool, steps: int) -> dict:
+    """The profiler window over ``steps`` TCP steps of every segment, on
+    fresh states."""
+    segs, _ = _tcp_segments(dev, n_seeds, sack)
+    runs = [(seg, seg[3].u.t().contiguous(), seg[3].stalls.t().contiguous())
+            for seg in segs]
+
+    def window(first):
+        for (c, params, tcp, su, st), u_t, stall_t in runs:
+            for s in range(first, first + steps):
+                tt._tcp_step(c, params, tcp, su, st, u_t[s], stall_t[s])
+
+    return _window(dev, window, steps, len(runs))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--seeds", type=int, default=14, help="forwarder seeds (serving: 3x)"
     )
     ap.add_argument("--profile-steps", type=int, default=32)
+    ap.add_argument(
+        "--scenario",
+        choices=("lanes", "tcp"),
+        default="lanes",
+        help="lanes: the forwarder and serving grids; tcp: the TCP grid and "
+        "its SACK leg",
+    )
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -259,6 +377,18 @@ def main() -> int:
         check=True,
     ).stdout.strip()
     run_sweep(SweepRequest(seeds=np.arange(2), n_packets=64), device=dev)  # warm
+    if args.scenario == "tcp":
+        res = dict(card=card)
+        for label, sack in (("tcp", False), ("tcp_sack", True)):
+            segs, setup_s = _tcp_segments(dev, args.seeds, sack)
+            lanes = sum(seg[3].u.shape[0] for seg in segs)
+            res[label] = dict(
+                lanes=lanes,
+                phases=dict(setup_s=setup_s, **tcp_phases(dev, segs)),
+                profile=tcp_profiled(dev, args.seeds, sack, args.profile_steps),
+            )
+            del segs
+        return _report(res, args.out)
     fwd, setup_s = _forwarder_segments(dev, args.seeds)
     res = dict(
         card=card,
@@ -273,11 +403,15 @@ def main() -> int:
         phases=dict(setup_s=setup_s, **phases(dev, srv, SERVING_MB, SERVING_N)),
         profile=profiled(dev, srv, SERVING_MB, args.profile_steps),
     )
+    return _report(res, args.out)
+
+
+def _report(res: dict, out) -> int:
     text = json.dumps(res, indent=1)
     print(text)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(text)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(text)
     return 0
 
 
