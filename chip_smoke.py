@@ -32,6 +32,9 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    non-causal, G 1/4/6; decode lengths 0, 1, every split and tile
    boundary +-1, S and past S at both served shapes) and the serving
    paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32 heads of 64;
+   whisper-large-v3's non-causal encoder over 1,500 frames and its
+   cross-attention prefill, the VLM's cross-attention prefill over 1,600
+   image tokens; decode over both cross caches at their full length;
    RMSNorm at widths 2,048, 2,560 and 4,096, plain and with the residual
    add folded in, whose sum must equal ``x + delta`` bit for bit; the
    batched done-prefix on device tensors and in place on pinned host
@@ -39,7 +42,8 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    one's time at qwen2-1.5b's shape beside the plain version's, the
    bound and one PyTorch library call's (flash attention also at the
    64-token prompt, flash and decode attention also at zamba2's shape,
-   each with its launch grid; the fused norm at a decode step and a
+   flash at Whisper's encoder, decode over both cross caches, each with
+   its launch grid; the fused norm at a decode step and a
    384-token prefill beside the eager add + norm pair; the engine's
    TAIL advance both ways in host microseconds, and behind a long
    default-stream kernel, from a profiler trace);
@@ -90,35 +94,47 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
 6. compacted engine == per-claim reference engine on the card, two
    runs of one request identical, and the card's results against the
    port's CPU run of the same small request;
-7, 9, 10. the serving paths at full width and full depth: qwen2-1.5b
-   (28 layers, d_model 1,536, 12 query heads over 2 KV heads), then
-   rwkv6-3b (32 layers, d_model 2,560, 40 WKV heads of 64) and
-   zamba2-1.2b (38 Mamba2 layers, d_model 2,048, a shared attention
-   block every 6 layers), each with random weights from seed 0, fp32
-   masters and bf16 compute, behind ``InferenceEngine`` (16 decode slots
-   in 4 lanes, 512 positions, 2 prefill workers, claim batch 4): 32
-   (qwen2) or 16 requests of 64-384 prompt tokens and 32 new tokens in
-   one burst over 8 sessions, after an untimed warm-up run, once under
-   COREC and once under RSS: every request answered, ``head == tail``,
-   the same tokens under both policies, and the exact launch count of
-   every kernel on the path (the norms split into plain and fused, as
-   many as the model has; every TAIL advance on the mapped route), each
-   path's counts set to 0 before it;
-7b, 9b, 10b. one decode step and one prefill of the same model: host
-   time, kernel time and device launches from a ``torch.profiler``
-   window, the device's idle share, the top kernels and the port's own
-   (a scan's passes summed into one figure per call), the decode step's
-   bound (the bytes it must move, from the specs), and the same call
-   with each fused norm split back into the eager add + norm pair;
-8, 9c, 10c. one 300-token prompt through ``prefill`` and 4
+7, 9, 10, 11, 12. the serving paths at full width: qwen2-1.5b (28
+   layers, d_model 1,536, 12 query heads over 2 KV heads), rwkv6-3b (32
+   layers, d_model 2,560, 40 WKV heads of 64), zamba2-1.2b (38 Mamba2
+   layers, d_model 2,048, a shared attention block every 6 layers),
+   whisper-large-v3 (32 encoder + 32 decoder layers, d_model 1,280, 20
+   heads of 64, 1,500 frames: full depth too) and llama-3.2-vision-90b
+   (d_model 8,192, 64/8 heads of 128, cross-attention on 1,600 image
+   tokens every 5th layer), its depth cut from 100 layers to 10 (two
+   groups of four self-attention layers and one cross layer: 100 do not
+   fit on one card); the first three at full depth.  Each with random
+   weights from seed 0, fp32 masters and bf16 compute, behind
+   ``InferenceEngine`` (16 decode slots in 4 lanes, 512 positions, 2
+   prefill workers, claim batch 4; Whisper's batch carries zero audio
+   frames and the VLM's zero image embeddings, as the reference engine
+   gives them): 32 (qwen2) or 16 requests of 64-384 prompt tokens
+   (Whisper: 4-64) and 32 new tokens in one burst over 8 sessions,
+   after an untimed warm-up run, once under COREC and once under RSS:
+   every request answered, ``head == tail``, the same tokens under both
+   policies, and the exact launch count of every kernel on the path (the
+   norms split into plain and fused, as many as the model has; every
+   TAIL advance on the mapped route), each path's counts set to 0
+   before it; the peak device memory;
+7b, 9b, 10b, 11b, 12b. one decode step (16 slots at 384 positions) and
+   one prefill of the path's longest prompt: host time, kernel time and
+   device launches from a ``torch.profiler`` window, the device's idle
+   share, the top kernels and the port's own (a scan's passes summed
+   into one figure per call), the decode step's bound (the bytes it must
+   move, from the specs: ``decode_step_bytes``), Whisper's prefill
+   bound (its operations), and the same call with each fused norm split
+   back into the eager add + norm pair;
+8, 9c, 10c, 11c, 12c. one 300-token prompt through ``prefill`` and 4
    teacher-forced ``decode_step``s in fp32, with the kernels and with
    the plain versions, the logits within ``1e-3`` and the argmax equal
-   at every step.  qwen2 and zamba2 take the fan-in of their 3-D
-   attention weights from the head count in the reference initialiser,
-   which makes their stacks chaotic: on the serving phase's weights the
-   difference is printed beside a perturbation control, and the
-   assertion is made with the weights drawn at the published
-   initializer range (the bf16 difference is printed, not asserted).
+   at every step (Whisper and the VLM on seeded random audio frames and
+   image embeddings).  The reference initialiser takes the fan-in of
+   the 3-D attention weights from the head count, which can make a
+   stack chaotic (``SERVED[...]["chaotic"]``, read off the control): on
+   the serving phase's weights the difference is printed beside a
+   perturbation control, and the assertion is made with the weights
+   drawn at the published initializer range (the bf16 difference is
+   printed, not asserted), after the serving weights are released.
    rwkv6 is asserted on the serving phase's weights.
 
 Prints one JSON line of per-kernel numbers, then, as the last line,
@@ -166,7 +182,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plan  # noqa: E402
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plan  # noqa: E402
-from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.api import build_model, frontend_inputs  # noqa: E402
 from repro_torch.models.spec import init_params, spec_map  # noqa: E402
 from repro_torch.serving import EngineConfig, InferenceEngine, Request  # noqa: E402
 
@@ -233,13 +249,15 @@ TCP_WORDS = (5 * 144 * N_SEEDS, -(-TCP_TX_BUDGET // 32))
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-#: the serving cells: three model families behind the decode-slot engine
+#: the serving cells: five model families behind the decode-slot engine
 MODEL = "qwen2-1.5b"
 RWKV = "rwkv6-3b"
 ZAMBA = "zamba2-1.2b"
+WHISPER = "whisper-large-v3"
+VLM = "llama-3.2-vision-90b"
 SEED = 0
-#: the published initializer_range of qwen2-1.5b and zamba2-1.2b (their
-#: Hugging Face configs)
+#: the published initializer_range of qwen2-1.5b, zamba2-1.2b and
+#: llama-3.2-vision (their Hugging Face configs; Whisper's init_std)
 INIT_RANGE = 0.02
 ENGINE = dict(
     n_slots=16, n_lanes=4, max_seq=512, n_workers=2, claim_batch=4, eos_token=-1
@@ -265,13 +283,30 @@ MODEL_KERNELS = {
 def _qwen_launches(cfg, pre: int, steps: int) -> dict:
     """RMSNorm before attention and the MLP of each layer and at the end:
     layer 0's ln1 plain, every other norm with the residual add before it
-    folded in (add_rmsnorm)."""
+    folded in (add_rmsnorm).  The VLM's cross layers count as layers:
+    each attends once (on the image memory) and has the same two norms."""
     L = cfg.n_layers
     return {
         "flash_attention": L * pre,
         "decode_attention": L * steps,
         "rmsnorm": pre + steps,
         "add_rmsnorm": 2 * L * (pre + steps),
+        "rwkv6": 0,
+        "ssd": 0,
+    }
+
+
+def _whisper_launches(cfg, pre: int, steps: int) -> dict:
+    """Flash attention per prefill in each encoder layer (non-causal) and
+    twice per decoder layer (causal self-attention, non-causal
+    cross-attention on the encoder output); decode attention twice per
+    decoder layer per step (the self cache, the cross cache); no RMSNorm
+    (the LayerNorm is plain PyTorch)."""
+    return {
+        "flash_attention": (cfg.enc_layers + 2 * cfg.n_layers) * pre,
+        "decode_attention": 2 * cfg.n_layers * steps,
+        "rmsnorm": 0,
+        "add_rmsnorm": 0,
         "rwkv6": 0,
         "ssd": 0,
     }
@@ -311,11 +346,13 @@ def _zamba_launches(cfg, pre: int, steps: int) -> dict:
     }
 
 
-#: per served model: its phase number, requests in the burst, the exact
-#: launch counts of the kernels, the RMSNorms of one model call (fused
-#: or not), and whether the reference initialiser makes its fp32 stack
-#: chaotic (fan-in of the 3-D attention weights taken from the head
-#: count), so that phase "c" asserts on weights at INIT_RANGE instead
+#: per served model: its phase number, requests in the burst, their
+#: prompt lengths, the exact launch counts of the kernels, the RMSNorms
+#: of one model call (fused or not), whether the reference initialiser
+#: makes its fp32 stack chaotic (fan-in of the 3-D attention weights
+#: taken from the head count; read off the perturbation control of phase
+#: "c"), so that phase "c" asserts on weights at INIT_RANGE instead, and
+#: the config's depth cut, if any
 SERVED = {
     MODEL: dict(
         phase="7",
@@ -339,7 +376,46 @@ SERVED = {
         + 1,
         chaotic=True,
     ),
+    # a decoder starts from a few task tokens plus the previous window's text
+    WHISPER: dict(
+        phase="11",
+        requests=16,
+        prompts=(4, 64),
+        launches=_whisper_launches,
+        norms=lambda cfg: 0,
+        chaotic=True,
+    ),
+    # 100 layers (about 90 B parameters) do not fit on one card: two groups
+    VLM: dict(
+        phase="12",
+        requests=16,
+        launches=_qwen_launches,
+        norms=lambda cfg: 2 * cfg.n_layers + 1,
+        chaotic=True,
+        cut=dict(n_layers=10),
+    ),
 }
+
+
+def served_config(name: str):
+    """The configuration a serving phase runs: the repo's, at full width,
+    with the depth cut of its SERVED entry, if any."""
+    return configs.get(name).replace(**SERVED[name].get("cut", {}))
+
+
+def model_batch(cfg, tokens, dev, generator=None) -> dict:
+    """A prefill batch: the tokens, and the stubbed frontends' inputs in
+    the compute dtype, zeros as the engine gives them, or standard
+    normal draws from ``generator``."""
+    batch = {"tokens": tokens}
+    dt = getattr(torch, cfg.dtype)
+    for key, shape in frontend_inputs(cfg).items():
+        shape = (tokens.shape[0], *shape)
+        if generator is None:
+            batch[key] = torch.zeros(shape, dtype=dt, device=dev)
+        else:
+            batch[key] = torch.randn(shape, generator=generator, device=dev).to(dt)
+    return batch
 
 
 def _grid(axes, n_seeds):
@@ -1232,6 +1308,9 @@ FLASH_CASES = [  # tests/test_kernels.py:41-50, then the redesign's edges
     (1, 33, 97, 6, 1, 32, False, 0),  # non-causal, G = 6
     (1, 64, 64, 12, 2, 128, True, 0),  # qwen2-1.5b's shortest prompt
     (3, 17, 17, 2, 1, 64, True, 0),  # one query past a 16-row tile
+    (1, 1500, 1500, 20, 20, 64, False, 0),  # Whisper's encoder, 23 x 64 + 28 keys
+    (1, 64, 1500, 20, 20, 64, False, 0),  # its cross-attention prefill
+    (1, 200, 1600, 64, 8, 128, False, 0),  # the VLM's cross-attention prefill
 ]
 
 
@@ -1285,6 +1364,24 @@ def phase_flash(dev, g) -> dict:
         )
         if timed is None:
             timed, entry_bound = got, bound
+    # Whisper's encoder: non-causal over 1,500 frames, 20 heads of 64
+    wc = configs.get(WHISPER)
+    F_, h, d = wc.enc_len, wc.n_heads, wc.head_dim
+    q, k, v = (
+        torch.randn(1, F_, h, d, generator=g, device=dev).bfloat16() for _ in "qkv"
+    )
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bound = _bound(2 * 4 * q.numel(), 4 * d * h * F_ * F_, BF16_OPS_PER_S)
+    warps, grid = flash_grid(1, F_, h, torch.bfloat16)
+    _time3(
+        f"flash_attention B=1 Sq=Sk={F_} H={h} Hkv={h} D={d} non-causal bf16 "
+        f"({WHISPER}'s encoder; grid {grid} of {warps} warps = {grid[0] * grid[1]} "
+        f"blocks; bound {bound[0]:.6f} ms, {bound[1]}, {4 * d * h * F_ * F_} "
+        f"operations, {bound[2]} bytes)",
+        lambda: flash_attention_cuda(q, k, v, causal=False),
+        lambda: kref.attention_ref(q, k, v, causal=False),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False),
+    )
     return _entry(
         "flash_attention",
         "flash_attention.cu",
@@ -1296,6 +1393,9 @@ def phase_flash(dev, g) -> dict:
 
 
 DECODE_CASES = [(2, 4, 4, 32, 40), (3, 8, 2, 64, 100), (1, 4, 1, 32, 513)]
+#: the cross caches, every slot over its full length: Whisper's 1,500
+#: frames (G = 1, D = 64) and the VLM's 1,600 image tokens (G = 8, D = 128)
+FULL_DECODE_CASES = [(16, 20, 20, 64, 1500), (16, 64, 8, 128, 1600)]
 
 
 def _decode_grid(B: int, Hkv: int, S: int, G: int) -> str:
@@ -1346,8 +1446,20 @@ def phase_decode(dev, g) -> dict:
         # a length of 0 gives 0 (the plain softmax over no key gives NaN)
         want = torch.where((lens > 0)[:, None, None], want, torch.zeros_like(want))
         err = max(err, _close(f"decode {dt} {(b, h, hkv, d, s)}", got, want, _tol(dt)))
+    for (b, h, hkv, d, s), dt in (
+        (c, dt) for c in FULL_DECODE_CASES for dt in (torch.float32, torch.bfloat16)
+    ):
+        q = torch.randn(b, h, d, generator=g, device=dev).to(dt)
+        k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dt)
+        v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dt)
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        got = decode_attention_cuda(q, k, v, lens)
+        want = kref.decode_attention_ref(q, k, v, lens)
+        what = f"decode {dt} {(b, h, hkv, d, s)} full"
+        err = max(err, _close(what, got, want, _tol(dt)))
     print(
-        f"phase 3b: decode_attention == plain on {len(cases)} cases, {len(edges)} "
+        f"phase 3b: decode_attention == plain on {len(cases)} cases and "
+        f"{2 * len(FULL_DECODE_CASES)} full cross caches, {len(edges)} "
         f"edge lengths at both served shapes (max err {err})"
     )
     # timed with every slot's cache full: the whole [16, 512] cache is valid
@@ -1386,6 +1498,27 @@ def phase_decode(dev, g) -> dict:
             zq[:, :, None, :], zkt, zvt, attn_mask=mask
         ),
     )
+    # the cross caches of Whisper and the VLM, read over their full length
+    for (b, h, hkv, d, s), name in zip(FULL_DECODE_CASES, (WHISPER, VLM)):
+        cq = torch.randn(b, h, d, generator=g, device=dev).bfloat16()
+        ck, cv = (
+            torch.randn(b, s, hkv, d, generator=g, device=dev).bfloat16() for _ in "kv"
+        )
+        clens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        ckt, cvt = (t.transpose(1, 2).contiguous() for t in (ck, cv))
+        cmask = torch.ones(b, 1, 1, s, dtype=torch.bool, device=dev)
+        cmoved = 4 * cq.numel() + 4 * b * s * hkv * d + b * 4
+        cb = _bound(cmoved, 4 * d * h * b * s, BF16_OPS_PER_S)
+        _time3(
+            f"decode_attention B={b} S={s} H={h} Hkv={hkv} D={d} full cross cache "
+            f"bf16 ({name}; {_decode_grid(b, hkv, s, h // hkv)}; bound "
+            f"{cb[0]:.6f} ms, {cb[1]}, {cb[2]} bytes)",
+            lambda: decode_attention_cuda(cq, ck, cv, clens),
+            lambda: kref.decode_attention_ref(cq, ck, cv, clens),
+            lambda: F.scaled_dot_product_attention(
+                cq[:, :, None, :], ckt, cvt, attn_mask=cmask, enable_gqa=hkv != h
+            ),
+        )
     return _entry(
         "decode_attention",
         "decode_attention.cu",
@@ -1862,21 +1995,49 @@ def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def _peak_gb() -> str:
+    return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+
+
+def _layout(cfg) -> str:
+    """The stack's depth as a phase header gives it."""
+    if cfg.is_encdec:
+        return (
+            f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
+            f"{cfg.enc_len} frames"
+        )
+    if cfg.cross_attn_every:
+        g, p = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every
+        full = configs.get(cfg.name).n_layers
+        return (
+            f"{cfg.n_layers} layers, depth cut from {full} (about 90 B "
+            f"parameters, which do not fit on one card): {g} groups of {p - 1} "
+            f"self-attention layers and one cross layer over "
+            f"{cfg.n_image_tokens} image tokens"
+        )
+    return f"{cfg.n_layers} layers"
+
+
 def phase_serving(dev, name: str):
-    """Phases 7, 9, 10: one serving path at full width behind the engine.
-    Returns the launch count of each model-path kernel over both
-    policies' runs, and the fp32 master weights for the phases after."""
-    cfg, spec = configs.get(name), SERVED[name]
+    """Phases 7, 9, 10, 11, 12: one serving path at full width behind the
+    engine.  Returns the launch count of each model-path kernel over both
+    policies' runs, the fp32 master weights and the prepared tree every
+    engine ran (shared, not copied per engine)."""
+    cfg, spec = served_config(name), SERVED[name]
     ph, n_req = spec["phase"], spec["requests"]
+    lo, hi = spec.get("prompts", PROMPT_LENS)
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = build_model(cfg).init(generator=gen, device=dev)
+    model = build_model(cfg)
+    params = model.init(generator=gen, device=dev)
+    run_params = model.prepare(params)
     n_params = sum(t.numel() for t in _leaves(params))
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n_req)
+    lens = rng.integers(lo, hi + 1, n_req)
     prompts = [list(map(int, rng.integers(0, cfg.vocab, int(n)))) for n in lens]
     sessions = rng.integers(0, 8, n_req)
     print(
-        f"phase {ph}: {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"phase {ph}: {name}: {_layout(cfg)}, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_padded()}, {n_params} params (fp32 masters, bf16 compute); "
         f"{n_req} requests, prompts {int(lens.min())}-{int(lens.max())} "
@@ -1885,7 +2046,7 @@ def phase_serving(dev, name: str):
     # warm-up, untimed and uncounted: the first engine in a process pays
     # for cuBLAS handles, allocator growth and first-shape heuristics, which
     # would otherwise fall on whichever policy runs first
-    warm = InferenceEngine(cfg, EngineConfig(**ENGINE), params=params, device=dev)
+    warm = InferenceEngine(cfg, EngineConfig(**ENGINE), params=run_params, device=dev)
     warm.run(
         [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)],
         timeout=600,
@@ -1894,7 +2055,7 @@ def phase_serving(dev, name: str):
     tokens, launches = {}, dict.fromkeys(MODEL_KERNELS, 0)
     for policy in ("corec", "rss"):
         eng = InferenceEngine(
-            cfg, EngineConfig(policy=policy, **ENGINE), params=params, device=dev
+            cfg, EngineConfig(policy=policy, **ENGINE), params=run_params, device=dev
         )
         reqs = [
             Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS, session=int(s))
@@ -1947,12 +2108,14 @@ def phase_serving(dev, name: str):
     if tokens["corec"] != tokens["rss"]:
         diff = [r for r in tokens["corec"] if tokens["corec"][r] != tokens["rss"][r]]
         raise AssertionError(f"{name}: tokens differ between policies for rids {diff}")
+    gc.collect()
     print(
         f"phase {ph}: all {n_req} requests answered with {NEW_TOKENS + 1} tokens "
         f"under both policies, identical tokens, head == tail == {n_req}; "
-        f"launches over both runs {launches}"
+        f"launches over both runs {launches}; peak device memory {_peak_gb()} "
+        f"(torch.cuda.max_memory_allocated)"
     )
-    return launches, params
+    return launches, params, run_params
 
 
 def _self_us(e) -> float:
@@ -2047,22 +2210,33 @@ def _kernel_name(key: str) -> str:
     return key.split("::")[1].split("<")[0].split("(")[0]
 
 
+#: the leaves only prefill reads: Whisper's encoder, and the K/V
+#: projections of every cross-attention, whose output prefill writes
+#: into the cross cache once (decode reads the cache, never these)
+PREFILL_ONLY = re.compile(r"^enc_|(^|/)(cross_attn|cross/attn)/[wb][kv]$")
+
+
 def decode_step_bytes(name: str, n: int) -> tuple:
-    """Bytes one decode step of ``name`` must move with every slot at
-    ``n`` positions, from the specs alone (nothing is allocated): each
-    weight as ``prepare`` leaves it, read once (the token table only in
-    the slots' rows, which the step gathers); each state read and
-    written; each KV cache read over its n valid positions.  Returns
-    (weight bytes, cache bytes)."""
-    cfg = configs.get(name)
+    """Bytes one decode step of ``name`` (its served configuration) must
+    move with every slot at ``n`` positions, from the specs alone
+    (nothing is allocated): each weight the step reads (not the
+    ``PREFILL_ONLY`` leaves), as ``prepare`` leaves it, read once -- the
+    token table only in the slots' rows, which the step gathers, unless
+    the embeddings are tied and ``unembed`` reads it whole; each state
+    read and written; each KV cache read over its n valid positions;
+    each cross cache (read-only, as long as the memory) read once whole.
+    Returns (weight bytes, state and cache bytes)."""
+    cfg = served_config(name)
     model = build_model(cfg)
     B, S = ENGINE["n_slots"], ENGINE["max_seq"]
     compute = 2 if cfg.dtype == "bfloat16" else 4
 
     def weights(tree, keep=False, path=""):
         if not isinstance(tree, dict):
+            if PREFILL_ONLY.search(path):
+                return 0
             size = 4 if keep else compute
-            if path == "embed/tok":  # gathered: B rows
+            if path == "embed/tok" and not cfg.tie_embeddings:  # gathered
                 return B * tree.shape[-1] * size
             return int(np.prod(tree.shape)) * size
         return sum(
@@ -2071,31 +2245,55 @@ def decode_step_bytes(name: str, n: int) -> tuple:
         )
 
     cache = 0
-    for spec in model.cache_specs(B, S).values():
+    for key, spec in model.cache_specs(B, S).items():
         size = torch.empty((), dtype=spec.dtype).element_size()
         numel = int(np.prod(spec.shape))
         if "cache_seq" in spec.axes:
             cache += numel * size * n // S  # read the valid positions
+        elif key.startswith("cross_"):
+            cache += numel * size  # read-only, read whole
         else:
             cache += 2 * numel * size  # states: read and written
     return weights(model.param_specs()), cache
 
 
-def phase_breakdown(dev, name: str, params) -> None:
-    """Phases 7b, 9b, 10b: where one decode step (every slot at the
-    longest prompt's length) and one prefill of the longest prompt spend
-    their time: host time per call (synchronised, unprofiled, median of
-    10), kernel time and device launches per call from a torch.profiler
-    window of 5 calls, and the device's idle share between them; then
-    the same with the fused norms split back into the eager pair."""
-    cfg = configs.get(name)
+def encdec_prefill_flops(cfg, n: int) -> tuple:
+    """Multiply-add operations (2 per MAC) of an encoder-decoder prefill
+    of an n-token prompt: the encoder over ``enc_len`` frames (its four
+    projections, the ungated MLP, non-causal attention's two products),
+    the cross-attention K/V projections of every decoder layer over the
+    frames, then the decoder over n tokens (self-attention's projections
+    and causal products, the cross-attention's q and o projections and
+    products over the frames, the MLP) and the last token's logits."""
+    d, ff, F = cfg.d_model, cfg.d_ff, cfg.enc_len
+    hd = cfg.n_heads * cfg.head_dim
+    layer = 2 * (4 * d * hd + 2 * d * ff)  # per token, MHA
+    enc = cfg.enc_layers * (F * layer + 4 * F * F * hd)
+    cross = cfg.n_layers * 2 * F * 2 * d * hd
+    dec = cfg.n_layers * (
+        n * (layer + 2 * 2 * d * hd) + 2 * n * (n + 1) * hd + 4 * n * F * hd
+    )
+    return enc, cross, dec + 2 * d * cfg.vocab_padded()
+
+
+def phase_breakdown(dev, name: str, p) -> None:
+    """Phases 7b, 9b, 10b, 11b, 12b: where one decode step (every slot at
+    the 384 positions of the longest prompt of 7-10) and one prefill of
+    the path's longest prompt spend their time: host time per call
+    (synchronised, unprofiled, median of 10), kernel time and device
+    launches per call from a torch.profiler window of 5 calls, and the
+    device's idle share between them; then, where the path folds
+    residual adds into norms, the same with the fused norms split back
+    into the eager pair.  ``p`` is the prepared tree the engines ran."""
+    cfg = served_config(name)
     ph = SERVED[name]["phase"]
     model = build_model(cfg)
-    p = model.prepare(params)
     B, S = ENGINE["n_slots"], ENGINE["max_seq"]
     n = min(PROMPT_LENS[1], S - 1)
+    n_pre = min(SERVED[name].get("prompts", PROMPT_LENS)[1], S - 1)
     rng = np.random.default_rng(SEED + 2)
-    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, n)), device=dev)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, n_pre)), device=dev)
+    batch = model_batch(cfg, prompt, dev)
     tok = torch.tensor(rng.integers(0, cfg.vocab, (B, 1)), device=dev)
     with torch.inference_mode():
         cache = model.init_cache(B, S, dev)
@@ -2105,7 +2303,7 @@ def phase_breakdown(dev, name: str, params) -> None:
         model.decode_step(p, cache, tok)
 
     def prefill():
-        model.prefill(p, {"tokens": prompt}, max_seq=S)
+        model.prefill(p, batch, max_seq=S)
 
     w_bytes, c_bytes = decode_step_bytes(name, n)
     bound_ms = (w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
@@ -2113,10 +2311,19 @@ def phase_breakdown(dev, name: str, params) -> None:
         f"phase {ph}b: {name} decode step bound: {w_bytes} bytes of weights "
         f"and {c_bytes} of state and cache, {bound_ms:.4f} ms at 3.35 TB/s"
     )
+    if cfg.is_encdec:
+        enc, cross, dec = encdec_prefill_flops(cfg, n_pre)
+        total = enc + cross + dec
+        print(
+            f"phase {ph}b: {name} prefill [1, {n_pre}] bound: {total} operations "
+            f"(encoder {enc}, cross K/V {cross}, decoder and unembedding {dec}), "
+            f"{total / BF16_OPS_PER_S * 1e3:.4f} ms at 989 TFLOP/s"
+        )
     calls = (
         (f"decode step [{B} slots, {n} positions]", step),
-        (f"prefill [1, {n}]", prefill),
+        (f"prefill [1, {n_pre}]", prefill),
     )
+    fused = SERVED[name]["launches"](cfg, 1, 0)["add_rmsnorm"]
     for what, fn in calls:
         host_ms, dev_ms, launches, kernels = _profile_call(fn)
         # the port's own kernels (csrc/'s anonymous namespace), each scan's
@@ -2141,6 +2348,8 @@ def phase_breakdown(dev, name: str, params) -> None:
             f"{len(kernels)} kernel names, idle share {idle}; top kernels per "
             f"call: {shown}; the port's kernels per call: {ours or None}"
         )
+        if not fused:
+            continue
         # the same call with each fused norm split back into the eager pair
         # it replaced (the add, then the plain norm): the launches it saves
         real = ops.add_rmsnorm
@@ -2149,7 +2358,6 @@ def phase_breakdown(dev, name: str, params) -> None:
             e_host, e_dev, e_launches, _ = _profile_call(fn)
         finally:
             ops.add_rmsnorm = real
-        fused = SERVED[name]["launches"](cfg, 1, 0)["add_rmsnorm"]
         print(
             f"phase {ph}b: {name} {what} with the eager add + norm pair instead "
             f"of add_rmsnorm: host {e_host:.4f} ms/call, kernels {e_dev:.4f} "
@@ -2197,10 +2405,10 @@ def _leaves(tree):
     return [tree]
 
 
-def _teacher_forced(cfg, params, prompt, steps):
+def _teacher_forced(cfg, params, batch, steps):
     model = build_model(cfg)
     p = model.prepare(params)
-    cache, logits = model.prefill(p, {"tokens": prompt}, max_seq=prompt.shape[1] + 8)
+    cache, logits = model.prefill(p, batch, max_seq=batch["tokens"].shape[1] + 8)
     out = [logits.float()]
     for tok in steps:
         cache, logits = model.decode_step(p, cache, tok)
@@ -2216,11 +2424,17 @@ def _same_argmax(xs, ys) -> int:
     return sum(bool(torch.equal(a.argmax(-1), b.argmax(-1))) for a, b in zip(xs, ys))
 
 
-def phase_model_parity(dev, name: str, params) -> None:
-    """Phases 8, 9c, 10c: the kernels against the plain versions through
-    the whole model at full width: a 300-token prefill and 4
-    teacher-forced decode steps, fp32 matmuls in full fp32, the logits
-    within 1e-3 and the argmax equal at every step.
+def phase_model_parity(dev, name: str, held: list) -> None:
+    """Phases 8, 9c, 10c, 11c, 12c: the kernels against the plain
+    versions through the whole model at full width (the VLM at its depth
+    cut): a 300-token prefill and 4 teacher-forced decode steps, fp32
+    matmuls in full fp32, the logits within 1e-3 and the argmax equal at
+    every step.  Whisper and the VLM take seeded standard normal audio
+    frames and image embeddings, not the engine's zeros, so that the
+    encoder's input and the cross-attention's memory vary.  ``held``
+    hands over the serving phase's fp32 weights: they are released
+    before the second draw (the VLM's two fp32 trees do not fit beside
+    each other with a bf16 copy on one card).
 
     Where the reference initialiser takes the fan-in of the 3-D attention
     weights from the head count (qwen2's ``[d, H, dh]``, zamba2's shared
@@ -2234,8 +2448,10 @@ def phase_model_parity(dev, name: str, params) -> None:
     (0.02), where rounding differences stay rounding differences.
     RWKV6 has no such weight: its assertion is made on the serving
     phase's weights, and the control is printed beside it."""
-    cfg, spec = configs.get(name), SERVED[name]
+    cfg, spec = served_config(name), SERVED[name]
     ph = "8" if name == MODEL else spec["phase"] + "c"
+    torch.cuda.reset_peak_memory_stats()
+    params = held.pop()
     rng = np.random.default_rng(SEED + 1)
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 300)), device=dev)
     steps = [
@@ -2243,9 +2459,11 @@ def phase_model_parity(dev, name: str, params) -> None:
     ]
     f32 = cfg.replace(dtype="float32")
     plain32 = f32.replace(attention_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    batch = model_batch(f32, prompt, dev, generator=gen)
 
     def run(c, p):
-        return _teacher_forced(c, p, prompt, steps)
+        return _teacher_forced(c, p, batch, steps)
 
     def check(kern, plain, what):
         for i, (a, b) in enumerate(zip(kern, plain)):
@@ -2272,9 +2490,14 @@ def phase_model_parity(dev, name: str, params) -> None:
     print(
         f"phase {ph}: {name} fp32, the serving phase's weights (reference "
         f"initialiser): kernels vs plain max abs logit diff {kern_diff:.3e} ({note}); "
-        f"plain vs plain with the token table scaled by 1 + 2**-22: {ctrl_diff:.3e}"
+        f"plain vs plain with the token table scaled by 1 + 2**-22: {ctrl_diff:.3e}; "
+        f"argmax equal at {_same_argmax(kern, base)}/5 steps"
     )
+    del params, base, kern
+    gc.collect()
+    torch.cuda.empty_cache()
     if not spec["chaotic"]:
+        print(f"phase {ph}: peak device memory {_peak_gb()}")
         return
     # published initializer_range: asserted
     specs = spec_map(
@@ -2292,7 +2515,8 @@ def phase_model_parity(dev, name: str, params) -> None:
         f"kernels vs plain max abs logit diff {err:.3e} (<= 1e-3 asserted), "
         f"argmax equal at all 5 steps; bf16: max abs logit diff "
         f"{_max_diff(kern16, plain16):.3e}, argmax equal at "
-        f"{_same_argmax(kern16, plain16)}/5 steps (reported, not asserted)"
+        f"{_same_argmax(kern16, plain16)}/5 steps (reported, not asserted); "
+        f"peak device memory {_peak_gb()}"
     )
 
 
@@ -2344,12 +2568,16 @@ def main() -> int:
     phase_agreement(dev)
     launches = dict.fromkeys(MODEL_KERNELS, 0)
     for name in SERVED:  # each path's counts set to 0 before it, read after
-        got, params = phase_serving(dev, name)
+        got, params, run_params = phase_serving(dev, name)
         for k, n in got.items():
             launches[k] += n
-        phase_breakdown(dev, name, params)
-        phase_model_parity(dev, name, params)
+        phase_breakdown(dev, name, run_params)
+        del run_params
+        held = [params]  # the parity phase releases them when done
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_model_parity(dev, name, held)
         gc.collect()
         torch.cuda.empty_cache()
     # a kernel's launches through all its wrappers: the RMSNorm kernel as
@@ -2363,7 +2591,7 @@ def main() -> int:
         if k["name"] == "done_prefix_batch":
             k["launches"] += launches["done_prefix_batch_mapped"]
             k["mapped_launches"] = launches["done_prefix_batch_mapped"]
-    print(f"launches over the three serving paths: {launches}")
+    print(f"launches over the five serving paths: {launches}")
     print(json.dumps({"kernels": [kernel, *model_kernels]}))
     print(
         json.dumps(

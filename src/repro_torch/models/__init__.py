@@ -1,6 +1,6 @@
-"""The port's model stack: the dense decoder of ``repro.models``.
+"""The port's model stack: the model families of ``repro.models``.
 
-``api.build_model(cfg)`` returns the model for a config; the dense
-decoder (``transformer.DecoderLM``) is ported, the other families raise
-``NotImplementedError`` naming their ROADMAP item.
+``api.build_model(cfg)`` returns the model for a config: the decoder
+(dense and VLM), RWKV6, Zamba2 and Whisper are ported; the MoE
+configurations raise ``NotImplementedError`` naming their ROADMAP item.
 """

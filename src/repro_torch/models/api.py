@@ -1,31 +1,42 @@
 """Model construction dispatch: ArchConfig -> model object.
 
-Ported: the dense decoder (``transformer.DecoderLM``), RWKV6
-(``rwkv.Rwkv6LM``) and the Zamba2 hybrid (``zamba.ZambaLM``).  Whisper
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it; so do the MoE and VLM configurations of the decoder.
+Ported: the decoder (``transformer.DecoderLM``: the dense stack and the
+VLM's cross-attention groups), RWKV6 (``rwkv.Rwkv6LM``), the Zamba2
+hybrid (``zamba.ZambaLM``) and Whisper (``whisper.EncDecLM``).  The MoE
+configurations of the decoder raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Tuple, Union
 
 from ..config import ArchConfig
 from .rwkv import Rwkv6LM
 from .transformer import DecoderLM
+from .whisper import EncDecLM
 from .zamba import ZambaLM
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "frontend_inputs"]
 
 
-def build_model(cfg: ArchConfig) -> Union[DecoderLM, Rwkv6LM, ZambaLM]:
+def build_model(cfg: ArchConfig) -> Union[DecoderLM, EncDecLM, Rwkv6LM, ZambaLM]:
     if cfg.rwkv:
         return Rwkv6LM(cfg)
     if cfg.ssm_state > 0 and cfg.shared_attn_every > 0:
         return ZambaLM(cfg)
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the Whisper model is not ported yet: ROADMAP.md "
-            "Queue A, item 3"
-        )
+        return EncDecLM(cfg)
     return DecoderLM(cfg)
+
+
+def frontend_inputs(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
+    """The stubbed frontends' inputs a prefill batch carries beside the
+    tokens, by key, each ``[B, *shape]`` in the compute dtype: the VLM's
+    image embeddings, Whisper's audio frames; none for the others."""
+    out = {}
+    if cfg.cross_attn_every:
+        out["image_embeds"] = (cfg.n_image_tokens, cfg.d_model)
+    if cfg.is_encdec:
+        out["audio_embeds"] = (cfg.enc_len, cfg.d_model)
+    return out

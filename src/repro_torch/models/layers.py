@@ -2,10 +2,11 @@
 
 Blocks take parameters as nested dicts of tensors (the reference's
 pytree, leaf for leaf) and the compute dtype from the ``ArchConfig``.
-Attention and RMSNorm dispatch through :mod:`repro_torch.kernels.ops`.
-The reference's sharding constraints (``rules``) have no counterpart on
-one card and are left out; the MoE block is not ported (ROADMAP.md
-Queue A, item 10).
+Attention and RMSNorm dispatch through :mod:`repro_torch.kernels.ops`;
+the LayerNorm (Whisper's) is plain PyTorch, as the reference's is plain
+XLA.  The reference's sharding constraints (``rules``) have no
+counterpart on one card and are left out; the MoE block is not ported
+(ROADMAP.md Queue A, item 10).
 
 Weights are cast to the compute dtype at use, as the reference's
 ``use_weight`` does.  The cast is a no-op for a tree that went through
@@ -15,6 +16,7 @@ which gives the same values without re-reading fp32 masters per step.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,8 +39,10 @@ __all__ = [
     "attn_specs",
     "attention_block",
     "attention_decode_block",
+    "cross_attention_decode",
     "decode_kv",
     "mlp_specs",
+    "gelu_tanh",
     "mlp_block",
     "embed_specs",
     "embed_tokens",
@@ -126,8 +130,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ----------------------------------------------------------------------
 # Norms
 # ----------------------------------------------------------------------
-def norm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
-    return {"w": ParamSpec((cfg.d_model,), (None,), init="ones")}
+def norm_specs(cfg: ArchConfig, kind: str = "rms") -> Dict[str, ParamSpec]:
+    """RMSNorm's weight; ``kind="ln"`` (LayerNorm) adds a zero bias."""
+    s = {"w": ParamSpec((cfg.d_model,), (None,), init="ones")}
+    if kind == "ln":
+        s["b"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+    return s
 
 
 def _norm_impl(cfg: ArchConfig) -> str:
@@ -137,7 +145,15 @@ def _norm_impl(cfg: ArchConfig) -> str:
 
 
 def apply_norm(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """RMSNorm with the weight as stored."""
+    """RMSNorm with the weight as stored; LayerNorm where ``p`` has a bias
+    (the reference's ``layers.py:112-118``, plain PyTorch: the fp32 mean
+    and biased variance, ``(x - mu) rsqrt(var + eps) w + b`` in fp32 with
+    the weight and bias as given, cast back to x's dtype)."""
+    if "b" in p:
+        xc = x.float()
+        xc = xc - xc.mean(-1, keepdim=True)
+        y = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + cfg.norm_eps)
+        return (y * p["w"].float() + p["b"].float()).to(x.dtype)
     return ops.rmsnorm(x, p["w"], eps=cfg.norm_eps, impl=_norm_impl(cfg))
 
 
@@ -161,13 +177,19 @@ def apply_add_norm(
 # ----------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------
-def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
-    d, dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+def attn_specs(
+    cfg: ArchConfig, cross: bool = False, d_in: Optional[int] = None
+) -> Dict[str, ParamSpec]:
+    """q from a ``d_in``-wide input (default d_model); k and v from the
+    same input, or from the d_model-wide memory when ``cross``."""
+    d = d_in if d_in is not None else cfg.d_model
+    d_kv = cfg.d_model if cross else d
+    dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     s = {
         "wq": ParamSpec((d, H, dh), ("embed", "heads", None)),
-        "wk": ParamSpec((d, Hkv, dh), ("embed", "kv_heads", None)),
-        "wv": ParamSpec((d, Hkv, dh), ("embed", "kv_heads", None)),
-        "wo": ParamSpec((H, dh, d), ("heads", None, "embed")),
+        "wk": ParamSpec((d_kv, Hkv, dh), ("embed", "kv_heads", None)),
+        "wv": ParamSpec((d_kv, Hkv, dh), ("embed", "kv_heads", None)),
+        "wo": ParamSpec((H, dh, cfg.d_model), ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
         s["bq"] = ParamSpec((H, dh), ("heads", None), init="zeros")
@@ -188,8 +210,9 @@ def _out(o: torch.Tensor, wo: torch.Tensor, dt) -> torch.Tensor:
     return torch.matmul(o.flatten(-2), _w(wo, dt).reshape(h * k, d))
 
 
-def _qkv(p, x: torch.Tensor, dt):
-    q, k, v = _proj(x, p["wq"], dt), _proj(x, p["wk"], dt), _proj(x, p["wv"], dt)
+def _qkv(p, x: torch.Tensor, mem: torch.Tensor, dt):
+    """q from ``x``, k and v from ``mem`` (``x`` itself for self-attention)."""
+    q, k, v = _proj(x, p["wq"], dt), _proj(mem, p["wk"], dt), _proj(mem, p["wv"], dt)
     if "bq" in p:
         q = q + _w(p["bq"], dt)
         k = k + _w(p["bk"], dt)
@@ -201,15 +224,20 @@ def attention_block(
     p: Dict[str, Any],
     x: torch.Tensor,  # [B, S, d]
     cfg: ArchConfig,
-    tables,  # rope_tables of the positions, shared by the layers
+    tables,  # rope_tables of the positions, shared by the layers; None: no RoPE
     causal: bool = True,
+    memory: Optional[torch.Tensor] = None,  # cross-attention source [B, Sk, d]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence self-attention (prefill).  Returns (out, kv) where kv
-    holds the roped K/V for the cache."""
+    """Full-sequence attention (prefill): self-attention, or with
+    ``memory`` cross-attention whose K/V come from the memory.  Returns
+    (out, kv) where kv holds the K/V for the cache, roped when ``tables``
+    is given and there is no memory (the reference's ``use_rope and
+    memory is None``)."""
     dt = cdtype(cfg)
-    q, k, v = _qkv(p, x, dt)
-    q = apply_rope(q, tables)
-    k = apply_rope(k, tables)
+    q, k, v = _qkv(p, x, x if memory is None else memory, dt)
+    if tables is not None and memory is None:
+        q = apply_rope(q, tables)
+        k = apply_rope(k, tables)
     o = ops.attention(q, k, v, causal=causal, impl=ops_impl(cfg))
     return _out(o, p["wo"], dt), {"k": k, "v": v}
 
@@ -229,6 +257,24 @@ def attention_decode_block(
         q = q + _w(p["bq"], dt)
     q = apply_rope(q, tables)
     o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths, impl=ops_impl(cfg))
+    return _out(o, p["wo"], dt)[:, None, :]
+
+
+def cross_attention_decode(
+    p: Dict[str, Any],
+    x: torch.Tensor,  # [B, 1, d], the new token
+    k_mem: torch.Tensor,  # [B, Sm, Hkv, dh], the memory's K/V from prefill
+    v_mem: torch.Tensor,
+    mem_len: torch.Tensor,  # [B] int32, every entry Sm: the whole memory
+    cfg: ArchConfig,
+) -> torch.Tensor:  # [B, 1, d]
+    """Cross-attention of one token over the read-only memory cache: q
+    from the token (no bias, no RoPE, as the reference's decode writes
+    it: ``whisper.py:201-214``, ``transformer.py:343-357``), one-token
+    attention over the memory's full length, then ``wo``."""
+    dt = cdtype(cfg)
+    q = _proj(x, p["wq"], dt)
+    o = ops.decode_attention(q[:, 0], k_mem, v_mem, mem_len, impl=ops_impl(cfg))
     return _out(o, p["wo"], dt)[:, None, :]
 
 
@@ -257,13 +303,28 @@ def mlp_specs(cfg: ArchConfig, gated: bool = True) -> Dict[str, ParamSpec]:
     return s
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default, the tanh form) as the reference
+    computes it: op for op in x's dtype, its constants rounded to that
+    dtype, ``x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 x^3))))``.
+    In bf16 this equals the reference bit for bit, where ``F.gelu``
+    (fp32 inside, one rounding, exact constants) differs on ~40% of
+    elements.  The constants travel as Python floats (no device copy)."""
+
+    def c(v):  # v rounded to x's dtype
+        return float(torch.tensor(v, dtype=x.dtype))
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * x**3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dt = cdtype(cfg)
     h = torch.matmul(x, _w(p["w1"], dt))
     if "w3" in p:
         h = F.silu(h) * torch.matmul(x, _w(p["w3"], dt))
     else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h = gelu_tanh(h)
     return torch.matmul(h, _w(p["w2"], dt))
 
 

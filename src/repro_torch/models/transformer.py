@@ -1,16 +1,23 @@
-"""Decoder-only transformer, dense homogeneous stack: the port of
+"""Decoder-only transformer: the port of
 ``repro.models.transformer.DecoderLM``.
 
 Covers the dense GQA/MHA configurations (qwen2, qwen2.5, granite,
-minicpm).  The layers are stacked ``[L, ...]`` leaves, as the reference
-keeps them for ``lax.scan``; here a Python loop walks them.  The MoE
-block and the VLM cross-attention groups are not ported (ROADMAP.md
-Queue A, items 10 and 11), nor is the training loss (item 12).
+minicpm) and the VLM's period/group stack (llama-3.2-vision:
+``cross_attn_every = P``, so ``n_layers / P`` groups of P - 1
+self-attention layers and one cross-attention layer on the image
+embeddings, non-causal and without RoPE, whose K/V prefill writes into
+a read-only cross cache ``[G, B, n_image_tokens, Hkv, dh]``).  The
+layers are stacked ``[L, ...]`` (VLM: ``[G, P - 1, ...]`` and
+``[G, ...]``) leaves, as the reference keeps them for ``lax.scan``;
+here Python loops walk them in the reference's order.  The MoE block is
+not ported (ROADMAP.md Queue A, item 10), nor is the training loss
+(item 12).
 
 API (the reference's, minus ``rules``):
   param_specs() / init(generator, device) / prepare(params)
-  forward(params, tokens, collect_kv) -> (hidden, caches, aux)
-  prefill(params, batch, max_seq) -> (cache, last_logits)
+  forward(params, tokens, image_embeds, collect_kv) -> (hidden, caches, aux)
+  prefill(params, batch, max_seq) -> (cache, last_logits), the VLM's
+      batch carrying ``image_embeds`` [B, n_image_tokens, d]
   decode_step(params, cache, tokens) -> (cache, logits)
   cache_specs(batch_size, seq_len) / init_cache(batch_size, seq_len, device)
 
@@ -30,7 +37,8 @@ Differences from the reference, none of which changes a value:
   travels to the next norm (or the final one) as ``delta``, and
   ``apply_add_norm`` returns the sum, bit for bit the reference's
   ``x + delta``, beside its norm; on the card one kernel launch does
-  both.  Only layer 0's ``ln1`` runs plain.
+  both.  The chain runs through the VLM's cross layers too.  Only
+  layer 0's ``ln1`` runs plain.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from .layers import (
     attn_specs,
     cast_tree,
     cdtype,
+    cross_attention_decode,
     decode_kv,
     embed_specs,
     embed_tokens,
@@ -75,11 +84,14 @@ class DecoderLM(LMBase):
                 f"{cfg.name}: the MoE block is not ported yet: ROADMAP.md "
                 "Queue A, item 10"
             )
-        if cfg.cross_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: the VLM cross-attention groups are not ported "
-                "yet: ROADMAP.md Queue A, item 11"
-            )
+        self.period = cfg.cross_attn_every  # 0: the homogeneous stack
+        if self.period:
+            if cfg.n_layers % self.period:
+                raise ValueError(
+                    f"{cfg.name}: {cfg.n_layers} layers are not whole groups "
+                    f"of {self.period}"
+                )
+            self.n_groups = cfg.n_layers // self.period
         self.res_scale = (
             cfg.depth_scale / (cfg.n_layers**0.5) if cfg.depth_scale else 1.0
         )
@@ -96,13 +108,44 @@ class DecoderLM(LMBase):
             "mlp": mlp_specs(cfg),
         }
 
-    def param_specs(self):
+    def _cross_layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {
+            "ln1": norm_specs(cfg),
+            "attn": attn_specs(cfg, cross=True),
+            "ln2": norm_specs(cfg),
+            "mlp": mlp_specs(cfg),
+        }
+
+    def param_specs(self):
+        cfg = self.cfg
+        specs: Dict[str, Any] = {
             "embed": embed_specs(cfg),
             "final_norm": norm_specs(cfg),
-            "layers": _stack(cfg.n_layers, self._layer_specs()),
         }
+        if self.period:
+            inner = _stack(self.period - 1, self._layer_specs())
+            specs["groups"] = {
+                "self": _stack(self.n_groups, inner),
+                "cross": _stack(self.n_groups, self._cross_layer_specs()),
+            }
+        else:
+            specs["layers"] = _stack(cfg.n_layers, self._layer_specs())
+        return specs
+
+    def _stack_walk(self, params):
+        """The layers in the reference's order: ``("self", lp, idx)`` with
+        ``idx`` the layer's index into the self K/V cache (``i``, or
+        ``(g, j)`` in the VLM's 6-D cache), and after each VLM group's
+        P - 1 self layers ``("cross", lp, g)``."""
+        if not self.period:
+            for i, lp in enumerate(_unstack(params["layers"], self.cfg.n_layers)):
+                yield "self", lp, i
+            return
+        for g, gp in enumerate(_unstack(params["groups"], self.n_groups)):
+            for j, lp in enumerate(_unstack(gp["self"], self.period - 1)):
+                yield "self", lp, (g, j)
+            yield "cross", gp["cross"], g
 
     # ------------------------------------------------------------------
     # forward (prefill)
@@ -118,37 +161,52 @@ class DecoderLM(LMBase):
         x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
         return x, self._scaled(mlp_block(lp["mlp"], h2, cfg)), kv
 
+    def _cross_layer(self, lp, x, delta, memory):
+        """A VLM cross layer, as :meth:`_self_layer`: attention on the
+        memory, non-causal and without RoPE; returns its K/V."""
+        cfg = self.cfg
+        x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
+        a, kv = attention_block(lp["attn"], h, cfg, None, causal=False, memory=memory)
+        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
+        return x, self._scaled(mlp_block(lp["mlp"], h2, cfg)), kv
+
     def _scaled(self, y):
         return y if self.res_scale == 1.0 else self.res_scale * y
 
-    def _forward(self, params, tokens, kv_out=None):
-        """``params`` already through ``cast_tree``."""
+    def _forward(self, params, tokens, image_embeds, kv_out):
+        """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
+        None, each self layer's K/V go into ``kv_out["k"/"v"][idx, :, :S]``
+        and each cross layer's into ``kv_out["cross_k"/"cross_v"][g]``."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        kvs, delta = [], None
-        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x, delta, kv = self._self_layer(lp, x, delta, tables)
-            if kv_out is not None:
-                kv_out["k"][i, :, :S] = kv["k"]
-                kv_out["v"][i, :, :S] = kv["v"]
+        mem = image_embeds.to(cdtype(cfg)) if self.period else None
+        delta = None
+        for kind, lp, idx in self._stack_walk(params):
+            if kind == "self":
+                x, delta, kv = self._self_layer(lp, x, delta, tables)
+                if kv_out is not None:
+                    kv_out["k"][idx][:, :S] = kv["k"]
+                    kv_out["v"][idx][:, :S] = kv["v"]
             else:
-                kvs.append(kv)
+                x, delta, kv = self._cross_layer(lp, x, delta, mem)
+                if kv_out is not None:
+                    kv_out["cross_k"][idx] = kv["k"]
+                    kv_out["cross_v"][idx] = kv["v"]
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
-        return x, kvs
+        return x
 
     @torch.inference_mode()
-    def forward(self, params, tokens, collect_kv: bool = False):
-        """tokens [B, S] -> (hidden [B, S, d], caches-or-None, aux_loss)."""
-        x, kvs = self._forward(cast_tree(params, cdtype(self.cfg)), tokens)
-        caches = None
-        if collect_kv:
-            caches = {
-                "k": torch.stack([kv["k"] for kv in kvs]),
-                "v": torch.stack([kv["v"] for kv in kvs]),
-            }
+    def forward(self, params, tokens, image_embeds=None, collect_kv: bool = False):
+        """tokens [B, S] (and the VLM's image_embeds [B, n_image_tokens,
+        d]) -> (hidden [B, S, d], caches-or-None, aux_loss)."""
+        caches = self.init_cache(*tokens.shape, tokens.device) if collect_kv else None
+        params = cast_tree(params, cdtype(self.cfg))
+        x = self._forward(params, tokens, image_embeds, caches)
+        if caches is not None:
+            del caches["lengths"]
         return x, caches, torch.zeros((), device=x.device)
 
     # ------------------------------------------------------------------
@@ -157,11 +215,24 @@ class DecoderLM(LMBase):
     def cache_specs(self, batch_size: int, seq_len: int) -> Dict[str, ParamSpec]:
         cfg = self.cfg
         dt = cdtype(cfg)
-        kv_shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
         kv_axes = (None, "batch", "cache_seq", "cache_heads", None)
+        if self.period:
+            kv_shape = (self.n_groups, self.period - 1, batch_size, seq_len, Hkv, dh)
+            kv_axes = (None,) + kv_axes
+            cross_shape = (self.n_groups, batch_size, cfg.n_image_tokens, Hkv, dh)
+            cross_axes = (None, "batch", None, "cache_heads", None)
+            specs = {
+                "cross_k": ParamSpec(cross_shape, cross_axes, "zeros", dtype=dt),
+                "cross_v": ParamSpec(cross_shape, cross_axes, "zeros", dtype=dt),
+            }
+        else:
+            kv_shape = (cfg.n_layers, batch_size, seq_len, Hkv, dh)
+            specs = {}
         return {
             "k": ParamSpec(kv_shape, kv_axes, "zeros", dtype=dt),
             "v": ParamSpec(kv_shape, kv_axes, "zeros", dtype=dt),
+            **specs,
             "lengths": ParamSpec((batch_size,), ("batch",), "zeros", dtype=torch.int32),
         }
 
@@ -176,7 +247,7 @@ class DecoderLM(LMBase):
             raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
         params = cast_tree(params, cdtype(self.cfg))
         cache = self.init_cache(B, max_seq, tokens.device)
-        x, _ = self._forward(params, tokens, kv_out=cache)
+        x = self._forward(params, tokens, batch.get("image_embeds"), cache)
         cache["lengths"].fill_(S)
         logits = unembed(params["embed"], x[:, -1:], self.cfg)
         return cache, logits[:, 0]
@@ -184,25 +255,33 @@ class DecoderLM(LMBase):
     @torch.inference_mode()
     def decode_step(self, params, cache, tokens):
         """tokens [B, 1] -> (cache', logits [B, V]).  Appends one token,
-        writing its K/V into ``cache`` in place."""
+        writing its K/V into ``cache`` in place; the VLM's cross cache is
+        read over its full length."""
         cfg = self.cfg
         lengths = cache["lengths"]
         k_all, v_all = cache["k"], cache["v"]
-        B, S = k_all.shape[1], k_all.shape[2]
+        B, S = k_all.shape[-4], k_all.shape[-3]
         x = embed_tokens(params["embed"], tokens, cfg)
         new_len = lengths + 1
         # dynamic_update_slice clamps the start into the cache
         pos = lengths.clamp(0, S - 1).long()
         rows = torch.arange(B, device=lengths.device)
         tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+        if self.period:
+            n_img = cache["cross_k"].shape[2]
+            mem_len = torch.full((B,), n_img, dtype=torch.int32, device=lengths.device)
         delta = None  # a block's output, added by the next norm
-        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            kc, vc = k_all[i], v_all[i]
+        for kind, lp, idx in self._stack_walk(params):
             x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
-            k_new, v_new = decode_kv(lp["attn"], h, cfg, tables)
-            kc[rows, pos] = k_new[:, 0]
-            vc[rows, pos] = v_new[:, 0]
-            a = attention_decode_block(lp["attn"], h, kc, vc, new_len, cfg, tables)
+            if kind == "self":
+                kc, vc = k_all[idx], v_all[idx]
+                k_new, v_new = decode_kv(lp["attn"], h, cfg, tables)
+                kc[rows, pos] = k_new[:, 0]
+                vc[rows, pos] = v_new[:, 0]
+                a = attention_decode_block(lp["attn"], h, kc, vc, new_len, cfg, tables)
+            else:
+                ck, cv = cache["cross_k"][idx], cache["cross_v"][idx]
+                a = cross_attention_decode(lp["attn"], h, ck, cv, mem_len, cfg)
             x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
             delta = self._scaled(mlp_block(lp["mlp"], h2, cfg))
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg)

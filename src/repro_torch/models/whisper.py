@@ -1,0 +1,233 @@
+"""Whisper-style encoder-decoder backbone (audio family): the port of
+``repro.models.whisper.EncDecLM``.
+
+As in the reference, the conv/mel frontend is a stub: the batch carries
+precomputed frame embeddings ``audio_embeds`` [B, enc_len, d_model].
+Pre-LN LayerNorm with bias, ungated GELU MLPs, MHA.  The encoder's
+self-attention is non-causal over learned positions (``enc_pos``); each
+decoder layer runs causal self-attention with RoPE (the reference's
+recorded deviation from Whisper's learned decoder positions), then
+cross-attention on the encoder output, then the MLP.  Attention goes
+through the port's kernels: flash attention in prefill (non-causal for
+the encoder and the cross-attention), decode attention over the self
+cache and over the read-only cross cache.  The LayerNorm is plain
+PyTorch, as the reference's is plain XLA, so no residual add is folded
+into a norm here.
+
+API as ``transformer.DecoderLM``'s, with the audio:
+  encode(params, audio_embeds) -> encoder output [B, enc_len, d]
+  forward(params, tokens, audio_embeds, collect_kv)
+      -> (hidden, (k, v, cross_k, cross_v) stacked per layer, or None)
+  prefill(params, batch, max_seq), the batch carrying ``audio_embeds``
+  decode_step(params, cache, tokens)
+The training loss is not ported (ROADMAP.md Queue A, item 12).
+
+The reference's two cast points are kept: prefill rounds every leaf to
+the compute dtype (``cast_tree``), the LayerNorm weights and biases
+included; decode reads those as stored (fp32, ``FP32_KEYS``), and
+``prepare`` casts every other weight once.  ``decode_step`` writes the
+new token's K/V into the self cache in place, clamped to the last
+position past ``max_seq`` as the reference's ``dynamic_update_slice``
+does; prefill writes the cross cache once and decode only reads it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import ArchConfig
+from .base import LMBase, _stack, _unstack
+from .layers import (
+    apply_norm,
+    attention_block,
+    attention_decode_block,
+    attn_specs,
+    cast_tree,
+    cdtype,
+    cross_attention_decode,
+    decode_kv,
+    embed_specs,
+    embed_tokens,
+    mlp_block,
+    mlp_specs,
+    norm_specs,
+    rope_tables,
+    unembed,
+)
+from .spec import ParamSpec
+
+__all__ = ["EncDecLM"]
+
+
+class EncDecLM(LMBase):
+    FP32_KEYS = ("ln1", "ln2", "ln3", "final_norm")
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        if not (cfg.enc_layers > 0 and cfg.enc_len > 0):
+            raise ValueError(f"{cfg.name}: not an encoder-decoder configuration")
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def _enc_layer_specs(self):
+        cfg = self.cfg
+        return {
+            "ln1": norm_specs(cfg, "ln"),
+            "attn": attn_specs(cfg),
+            "ln2": norm_specs(cfg, "ln"),
+            "mlp": mlp_specs(cfg, gated=False),
+        }
+
+    def _dec_layer_specs(self):
+        cfg = self.cfg
+        return {
+            "ln1": norm_specs(cfg, "ln"),
+            "self_attn": attn_specs(cfg),
+            "ln2": norm_specs(cfg, "ln"),
+            "cross_attn": attn_specs(cfg, cross=True),
+            "ln3": norm_specs(cfg, "ln"),
+            "mlp": mlp_specs(cfg, gated=False),
+        }
+
+    def param_specs(self):
+        cfg = self.cfg
+        return {
+            "embed": embed_specs(cfg),
+            "enc_pos": ParamSpec(
+                (cfg.enc_len, cfg.d_model), (None, "embed"), scale=0.01
+            ),
+            "enc_layers": _stack(cfg.enc_layers, self._enc_layer_specs()),
+            "enc_norm": norm_specs(cfg, "ln"),
+            "dec_layers": _stack(cfg.n_layers, self._dec_layer_specs()),
+            "final_norm": norm_specs(cfg, "ln"),
+        }
+
+    # ------------------------------------------------------------------
+    # encoder + decoder (prefill)
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def encode(self, params, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """audio_embeds [B, enc_len, d] -> the encoder output, in the
+        compute dtype, with the weights as given (``forward`` rounds them
+        first, as the reference's does)."""
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        x = audio_embeds.to(dt) + params["enc_pos"].to(dt)
+        for lp in _unstack(params["enc_layers"], cfg.enc_layers):
+            h = apply_norm(lp["ln1"], x, cfg)
+            a, _ = attention_block(lp["attn"], h, cfg, None, causal=False)
+            x = x + a
+            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+        return apply_norm(params["enc_norm"], x, cfg)
+
+    def _forward(self, params, tokens, audio_embeds, kv_out):
+        """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
+        None, each layer's self K/V go into ``kv_out["k"/"v"][i, :, :S]``
+        and its cross K/V into ``kv_out["cross_k"/"cross_v"][i]``."""
+        cfg = self.cfg
+        enc = self.encode(params, audio_embeds)
+        x = embed_tokens(params["embed"], tokens, cfg)
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+            h = apply_norm(lp["ln1"], x, cfg)
+            a, kv = attention_block(lp["self_attn"], h, cfg, tables)
+            x = x + a
+            h2 = apply_norm(lp["ln2"], x, cfg)
+            c, ckv = attention_block(
+                lp["cross_attn"], h2, cfg, None, causal=False, memory=enc
+            )
+            x = x + c
+            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
+            if kv_out is not None:
+                kv_out["k"][i, :, :S] = kv["k"]
+                kv_out["v"][i, :, :S] = kv["v"]
+                kv_out["cross_k"][i] = ckv["k"]
+                kv_out["cross_v"][i] = ckv["v"]
+        return apply_norm(params["final_norm"], x, cfg)
+
+    @torch.inference_mode()
+    def forward(self, params, tokens, audio_embeds, collect_kv: bool = False):
+        """tokens [B, S], audio_embeds [B, enc_len, d] -> (hidden [B, S, d],
+        (k, v, cross_k, cross_v) stacked over the layers, or None)."""
+        caches = self.init_cache(*tokens.shape, tokens.device) if collect_kv else None
+        params = cast_tree(params, cdtype(self.cfg))
+        x = self._forward(params, tokens, audio_embeds, caches)
+        if caches is None:
+            return x, None
+        return x, tuple(caches[k] for k in ("k", "v", "cross_k", "cross_v"))
+
+    # ------------------------------------------------------------------
+    # serving: prefill + decode
+    # ------------------------------------------------------------------
+    def cache_specs(self, batch_size: int, seq_len: int):
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        kv_axes = (None, "batch", "cache_seq", "cache_heads", None)
+        cross_axes = (None, "batch", None, "cache_heads", None)
+        kv_shape = (L, batch_size, seq_len, Hkv, dh)
+        cross_shape = (L, batch_size, cfg.enc_len, Hkv, dh)
+        return {
+            "k": ParamSpec(kv_shape, kv_axes, "zeros", dtype=dt),
+            "v": ParamSpec(kv_shape, kv_axes, "zeros", dtype=dt),
+            "cross_k": ParamSpec(cross_shape, cross_axes, "zeros", dtype=dt),
+            "cross_v": ParamSpec(cross_shape, cross_axes, "zeros", dtype=dt),
+            "lengths": ParamSpec((batch_size,), ("batch",), "zeros", dtype=torch.int32),
+        }
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, max_seq: Optional[int] = None):
+        """Encoder + full-sequence decoder; returns (cache, its self K/V
+        padded to max_seq, and the last logits [B, V])."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        max_seq = max_seq or S
+        if S > max_seq:
+            raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
+        params = cast_tree(params, cdtype(self.cfg))
+        cache = self.init_cache(B, max_seq, tokens.device)
+        x = self._forward(params, tokens, batch["audio_embeds"], cache)
+        cache["lengths"].fill_(S)
+        logits = unembed(params["embed"], x[:, -1:], self.cfg)
+        return cache, logits[:, 0]
+
+    @torch.inference_mode()
+    def decode_step(self, params, cache, tokens):
+        """tokens [B, 1] -> (cache', logits [B, V]).  Appends one token,
+        writing its self K/V into ``cache`` in place; the cross cache is
+        read over its full length."""
+        cfg = self.cfg
+        lengths = cache["lengths"]
+        k_all, v_all = cache["k"], cache["v"]
+        B, S = k_all.shape[1], k_all.shape[2]
+        x = embed_tokens(params["embed"], tokens, cfg)
+        new_len = lengths + 1
+        # dynamic_update_slice clamps the start into the cache
+        pos = lengths.clamp(0, S - 1).long()
+        rows = torch.arange(B, device=lengths.device)
+        tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+        enc_len = cache["cross_k"].shape[2]
+        mem_len = torch.full((B,), enc_len, dtype=torch.int32, device=lengths.device)
+        for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+            kc, vc = k_all[i], v_all[i]
+            h = apply_norm(lp["ln1"], x, cfg)
+            k_new, v_new = decode_kv(lp["self_attn"], h, cfg, tables)
+            kc[rows, pos] = k_new[:, 0]
+            vc[rows, pos] = v_new[:, 0]
+            x = x + attention_decode_block(
+                lp["self_attn"], h, kc, vc, new_len, cfg, tables
+            )
+            h2 = apply_norm(lp["ln2"], x, cfg)
+            x = x + cross_attention_decode(
+                lp["cross_attn"], h2, cache["cross_k"][i], cache["cross_v"][i],
+                mem_len, cfg,
+            )
+            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
+        x = apply_norm(params["final_norm"], x, cfg)
+        logits = unembed(params["embed"], x, cfg)
+        return dict(cache, lengths=new_len), logits[:, 0]

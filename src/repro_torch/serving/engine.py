@@ -49,7 +49,8 @@ from ..compat import resolve_device
 from ..config import ArchConfig
 from ..kernels import _build, ops
 from ..kernels.doneprefix import done_prefix_batch_mapped
-from ..models.api import build_model
+from ..models.api import build_model, frontend_inputs
+from ..models.layers import cdtype
 from .request import Request, RequestResult
 from .scheduler import make_scheduler
 
@@ -151,8 +152,15 @@ class InferenceEngine:
     # ingestion worker: claim -> prefill -> stage
     # ------------------------------------------------------------------
     def _make_batch(self, req: Request):
+        """The prompt, and the stubbed frontends' inputs as the reference
+        engine gives them: zero image embeddings (VLM) and zero audio
+        frames (Whisper), in the compute dtype."""
         tokens = torch.tensor(req.prompt, dtype=torch.int32, device=self.device)
-        return {"tokens": tokens[None, :]}
+        batch = {"tokens": tokens[None, :]}
+        dt = cdtype(self.cfg)
+        for key, shape in frontend_inputs(self.cfg).items():
+            batch[key] = torch.zeros((1, *shape), dtype=dt, device=self.device)
+        return batch
 
     def _worker_loop(self, wid: int):
         with torch.inference_mode():  # thread-local: enter it per thread

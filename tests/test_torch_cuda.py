@@ -7,7 +7,8 @@ on the machine with the card, where JAX is not installed::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are those of the serving paths (qwen2-1.5b, rwkv6-3b,
-zamba2-1.2b) and of the reference's sweeps; tolerances are those of
+zamba2-1.2b, whisper-large-v3's encoder and cross caches, the VLM's
+cross-attention) and of the reference's sweeps; tolerances are those of
 ``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``; the WKV6 and SSD
 scans ``2e-4`` in fp32, the reference's own for them), done-prefix
 exact, and the claim check exact on ``chip_smoke.py``'s edge set.  Each
@@ -237,6 +238,9 @@ FLASH_EDGES = [
     (1, 64, 64, 12, 2, 128, True, 0),  # qwen2-1.5b's shortest prompt
     (1, 200, 200, 16, 4, 64, True, 0),  # G = 4, two warps per block
     (3, 17, 17, 2, 1, 64, True, 0),  # one query past a 16-row tile
+    (1, 1500, 1500, 20, 20, 64, False, 0),  # Whisper's encoder: 23 x 64 + 28 keys
+    (1, 64, 1500, 20, 20, 64, False, 0),  # its cross-attention prefill
+    (1, 200, 1600, 64, 8, 128, False, 0),  # the VLM's cross-attention prefill
 ]
 
 
@@ -257,6 +261,82 @@ def test_cuda_flash_attention_edges_equal_plain(case, dtype):
     assert flash_attention_cuda.launches == before + 1
     want = ref.attention_ref(q, k, v, causal=causal, q_offset=qo)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 20, 20, 64, 1500), (16, 64, 8, 128, 1600)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_decode_attention_full_cross_caches(shape, dtype):
+    """The cross caches, every slot at its full length: Whisper's 1,500
+    frames (G = 1, D = 64), the VLM's 1,600 image tokens (G = 8, D = 128)."""
+    dev = _card()
+    B, H, Hkv, D, S = shape
+    g = torch.Generator(device=dev).manual_seed(S)
+    tdt = DTYPES[dtype]
+    q = torch.randn(B, H, D, generator=g, device=dev).to(tdt)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(tdt)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    before = decode_attention_cuda.launches
+    got = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention_ref(q, k, v, lens).float(), **_tol(dtype)
+    )
+
+
+#: the cross-attention families at card-sized heads (64 wide: the
+#: kernels take head dims 32, 64 and 128, the tiny configs' are 16)
+CROSS_MODELS = {
+    "whisper-large-v3": dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=512),
+    "llama-3.2-vision-90b": dict(d_model=256, n_heads=4, n_kv_heads=2, d_ff=512),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CROSS_MODELS))
+def test_cuda_cross_attention_models_equal_plain(name):
+    """Whisper and the VLM stack in fp32 on the card: prefill and 3
+    decode steps with the kernels equal the plain versions (1e-3, as
+    chip_smoke.py's parity phases), and every attention of the path
+    launched its kernel."""
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+
+    dev = _card()
+    cfg = configs.get_tiny(name).replace(**CROSS_MODELS[name])
+    model = build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = model.prepare(model.init(generator=g, device=dev))
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=g, device=dev)
+    if cfg.is_encdec:
+        key, n = "audio_embeds", cfg.enc_len
+    else:
+        key, n = "image_embeds", cfg.n_image_tokens
+    emb = torch.randn(2, n, cfg.d_model, generator=g, device=dev)
+    steps = [
+        torch.randint(0, cfg.vocab, (2, 1), generator=g, device=dev) for _ in range(3)
+    ]
+
+    def run(c):
+        m = build_model(c)
+        cache, logits = m.prefill(params, {"tokens": tokens, key: emb}, max_seq=16)
+        out = [logits]
+        for tok in steps:
+            cache, logits = m.decode_step(params, cache, tok)
+            out.append(logits)
+        return out
+
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    got = run(cfg)
+    torch.cuda.synchronize()
+    attn = cfg.n_layers * (2 if cfg.is_encdec else 1)
+    assert flash_attention_cuda.launches - f0 == attn + cfg.enc_layers
+    assert decode_attention_cuda.launches - d0 == 3 * attn
+    want = run(cfg.replace(attention_impl="xla"))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
 
 
 def _edge_lengths(S: int) -> list:

@@ -234,8 +234,6 @@ def test_params_from_reference_rejects_missing_extra_and_misshapen_leaves():
     [
         ("moonshot-v1-16b-a3b", "item 10"),  # MoE
         ("grok-1-314b", "item 10"),  # MoE
-        ("llama-3.2-vision-90b", "item 11"),  # VLM cross-attention
-        ("whisper-large-v3", "item 3"),
     ],
 )
 def test_unported_families_raise_naming_roadmap_item(name, item):

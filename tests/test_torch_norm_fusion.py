@@ -9,12 +9,14 @@ reference's bit for bit (the kernel on the card is held to the same);
 ``y`` is held at the tolerances of ``tests/test_kernels.py`` (fp32
 ``2e-5``, bf16 ``2e-2``).
 
-The launch plan: every norm of the three served models whose input is
-a residual add runs as ``ops.add_rmsnorm``; the rest as ``ops.rmsnorm``.
+The launch plan: every norm of the served models whose input is a
+residual add runs as ``ops.add_rmsnorm``; the rest as ``ops.rmsnorm``.
 The calls of each are counted per prefill and per decode step on the
 tiny configs and held against the formulas ``chip_smoke.py`` asserts on
-the card, which give 56/1 (qwen2-1.5b), 64/1 (rwkv6-3b) and 38/13
-(zamba2-1.2b) at full depth, as many norms a call as before.
+the card, which give 56/1 (qwen2-1.5b), 64/1 (rwkv6-3b), 38/13
+(zamba2-1.2b) and 20/1 (llama-3.2-vision at its served depth of 10
+layers) at full depth, as many norms a call as before; Whisper's
+LayerNorms launch no RMSNorm kernel.
 """
 
 from __future__ import annotations
@@ -107,7 +109,16 @@ def _count_norm_calls(monkeypatch, fn) -> dict:
     return counts
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "rwkv6-3b", "zamba2-1.2b"])
+SERVED = (
+    "qwen2-1.5b",
+    "rwkv6-3b",
+    "zamba2-1.2b",
+    "whisper-large-v3",
+    "llama-3.2-vision-90b",
+)
+
+
+@pytest.mark.parametrize("name", SERVED)
 def test_norm_launch_plan_equals_chip_smoke_formula(monkeypatch, name):
     """One prefill and one decode step of the tiny config: the norms
     that fold a residual add in and the plain ones, as chip_smoke.py's
@@ -122,10 +133,11 @@ def test_norm_launch_plan_equals_chip_smoke_formula(monkeypatch, name):
     tokens = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, (2, 7)).astype(np.int32)
     )
+    batch = smoke.model_batch(cfg, tokens, "cpu")
     box = {}
 
     def prefill():
-        box["cache"], _ = model.prefill(params, {"tokens": tokens}, max_seq=12)
+        box["cache"], _ = model.prefill(params, batch, max_seq=12)
 
     def step():
         model.decode_step(params, box["cache"], tokens[:, :1])
@@ -140,15 +152,20 @@ def test_norm_launch_plan_equals_chip_smoke_formula(monkeypatch, name):
 def test_full_depth_norm_plans():
     """56/1, 64/1 and 38/13 fused/plain norms per call at full depth:
     one eager add launch fewer per fused norm than before the fusion,
-    and the same number of norms (57, 65, 51)."""
+    and the same number of norms (57, 65, 51); the VLM at its served
+    depth (10 layers) 20/1, its cross layers' norms fused too; Whisper
+    none (LayerNorm, plain PyTorch)."""
     smoke = _chip_smoke()
     want = {
         "qwen2-1.5b": (56, 1),
         "rwkv6-3b": (64, 1),
         "zamba2-1.2b": (38, 13),
+        "whisper-large-v3": (0, 0),
+        "llama-3.2-vision-90b": (20, 1),
     }
+    assert sorted(want) == sorted(smoke.SERVED)
     for name, (fused, plain) in want.items():
-        cfg = configs.get(name)
+        cfg = smoke.served_config(name)
         got = smoke.SERVED[name]["launches"](cfg, 1, 0)
         assert (got["add_rmsnorm"], got["rmsnorm"]) == (fused, plain)
         assert smoke.SERVED[name]["norms"](cfg) == fused + plain

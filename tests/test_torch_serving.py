@@ -5,8 +5,11 @@ The mirrors run the port's engine on the CPU (``device="cpu"``, the
 kernels' plain versions) with ``tests/test_serving.py``'s TINY config.
 The wall-clock test (``test_work_conservation_under_skewed_sessions``)
 is not mirrored: it is a timing assertion (ROADMAP.md Queue A, item 13).
-The parity test runs the reference engine and the port's on the same
-carried parameters and requests and wants identical tokens per rid.
+The parity tests run the reference engine and the port's on the same
+carried parameters and requests and want identical tokens per rid: on
+the TINY config, and on the tiny configs of the two cross-attention
+families (Whisper, whose engine feeds zero audio frames, and the VLM,
+zero image embeddings), under both policies.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.config import ArchConfig as JArchConfig  # noqa: E402
 from repro.serving import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serving import InferenceEngine as JInferenceEngine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.config import ArchConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
@@ -202,6 +207,39 @@ def test_port_engine_tokens_equal_reference_engine(reference_run):
         device="cpu",
     )
     res = eng.run(_requests(8, seed=13), timeout=120)
+    assert {r.rid: r.tokens for r in res} == want
+    assert eng.head == eng.tail == 8
+    assert sum(eng.release_events) == 8
+
+
+@pytest.fixture(scope="module", params=["whisper-large-v3", "llama-3.2-vision-90b"])
+def cross_reference_run(request):
+    """One reference engine run per cross-attention family's tiny config
+    (the engine's batch carries zero audio frames or image embeddings)."""
+    name = request.param
+    ecfg = dict(n_slots=4, max_seq=24, n_workers=2, eos_token=-1, n_lanes=2)
+    jcfg = jconfigs.get_tiny(name)
+    eng = JInferenceEngine(jcfg, JEngineConfig(**ecfg), rng=jax.random.PRNGKey(7))
+    res = eng.run(_requests(8, seed=17, cls=JRequest), timeout=120)
+    params = jax.tree_util.tree_map(np.asarray, eng.params)
+    tokens = {r.rid: r.tokens for r in res}
+    return name, ecfg, params, tokens, (eng.head, eng.tail)
+
+
+@pytest.mark.parametrize("policy", ["corec", "rss"])
+def test_port_engine_tokens_equal_reference_engine_cross_families(
+    cross_reference_run, policy
+):
+    name, ecfg, params, want, (head, tail) = cross_reference_run
+    assert head == tail == 8
+    cfg = configs.get_tiny(name)
+    eng = InferenceEngine(
+        cfg,
+        EngineConfig(policy=policy, **ecfg),
+        params=params_from_reference(cfg, params, device="cpu"),
+        device="cpu",
+    )
+    res = eng.run(_requests(8, seed=17), timeout=120)
     assert {r.rid: r.tokens for r in res} == want
     assert eng.head == eng.tail == 8
     assert sum(eng.release_events) == 8
