@@ -30,8 +30,9 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    card over the shape sweeps of ``tests/test_kernels.py``, the
    attention kernels' edges (ragged tiles, ``q_offset`` with Sk > Sq,
    non-causal, G 1/4/6; decode lengths 0, 1, every split and tile
-   boundary +-1, S and past S at both served shapes) and the serving
-   paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32 heads of 64;
+   boundary +-1, S and past S at the four served self-attention shapes)
+   and the serving paths' shapes (qwen2-1.5b's; zamba2-1.2b's 32/32
+   heads of 64; moonshot's 16/16 and grok-1's 48/8 heads of 128;
    whisper-large-v3's non-causal encoder over 1,500 frames and its
    cross-attention prefill, the VLM's cross-attention prefill over 1,600
    image tokens; decode over both cross caches at their full length;
@@ -41,7 +42,8 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    memory), fp32 ``2e-5``, bf16 ``2e-2``, done-prefix exact; then each
    one's time at qwen2-1.5b's shape beside the plain version's, the
    bound and one PyTorch library call's (flash attention also at the
-   64-token prompt, flash and decode attention also at zamba2's shape,
+   64-token prompt, flash and decode attention also at zamba2's,
+   moonshot's and grok-1's shapes,
    flash at Whisper's encoder, decode over both cross caches, each with
    its launch grid; the fused norm at a decode step and a
    384-token prefill beside the eager add + norm pair; the engine's
@@ -94,7 +96,7 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
 6. compacted engine == per-claim reference engine on the card, two
    runs of one request identical, and the card's results against the
    port's CPU run of the same small request;
-7, 9, 10, 11, 12. the serving paths at full width: qwen2-1.5b (28
+7, 9-14. the serving paths at full width: qwen2-1.5b (28
    layers, d_model 1,536, 12 query heads over 2 KV heads), rwkv6-3b (32
    layers, d_model 2,560, 40 WKV heads of 64), zamba2-1.2b (38 Mamba2
    layers, d_model 2,048, a shared attention block every 6 layers),
@@ -103,7 +105,11 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    (d_model 8,192, 64/8 heads of 128, cross-attention on 1,600 image
    tokens every 5th layer), its depth cut from 100 layers to 10 (two
    groups of four self-attention layers and one cross layer: 100 do not
-   fit on one card); the first three at full depth.  Each with random
+   fit on one card); the first three at full depth; then the MoE
+   decoders (13: moonshot-v1-16b-a3b, d_model 2,048, 16/16 heads of 128,
+   64 experts top-6 of d_ff 1,408, its depth cut from 48 layers to 16;
+   14: grok-1-314b, d_model 6,144, 48/8 heads of 128, 8 experts top-2
+   of d_ff 32,768, its depth cut from 64 layers to 2).  Each with random
    weights from seed 0, fp32 masters and bf16 compute, behind
    ``InferenceEngine`` (16 decode slots in 4 lanes, 512 positions, 2
    prefill workers, claim batch 4; Whisper's batch carries zero audio
@@ -112,11 +118,15 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    (Whisper: 4-64) and 32 new tokens in one burst over 8 sessions,
    after an untimed warm-up run, once under COREC and once under RSS:
    every request answered, ``head == tail``, the same tokens under both
-   policies, and the exact launch count of every kernel on the path (the
-   norms split into plain and fused, as many as the model has; every
-   TAIL advance on the mapped route), each path's counts set to 0
-   before it; the peak device memory;
-7b, 9b, 10b, 11b, 12b. one decode step (16 slots at 384 positions) and
+   policies (the MoE paths: the same first token, and the count of
+   requests whose later tokens differ printed, since an MoE decode step
+   routes all 16 slots as one group whose expert capacity couples them;
+   and the decode steps' share of dropped assignments), and the exact
+   launch count of every kernel on the path (the norms split into plain
+   and fused, as many as the model has; every TAIL advance on the mapped
+   route; the MoE block launches no kernel of the port), each path's
+   counts set to 0 before it; the peak device memory;
+7b, 9b-14b. one decode step (16 slots at 384 positions) and
    one prefill of the path's longest prompt: host time, kernel time and
    device launches from a ``torch.profiler`` window, the device's idle
    share, the top kernels and the port's own (a scan's passes summed
@@ -124,10 +134,12 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    move, from the specs: ``decode_step_bytes``), Whisper's prefill
    bound (its operations), and the same call with each fused norm split
    back into the eager add + norm pair;
-8, 9c, 10c, 11c, 12c. one 300-token prompt through ``prefill`` and 4
+8, 9c-14c. one 300-token prompt through ``prefill`` and 4
    teacher-forced ``decode_step``s in fp32, with the kernels and with
    the plain versions, the logits within ``1e-3`` and the argmax equal
-   at every step (Whisper and the VLM on seeded random audio frames and
+   at every step, then the model's ``loss`` on the prompt (its next
+   tokens as labels) both ways, the total and each metric within
+   ``1e-3`` (Whisper and the VLM on seeded random audio frames and
    image embeddings).  The reference initialiser takes the fan-in of
    the 3-D attention weights from the head count, which can make a
    stack chaotic (``SERVED[...]["chaotic"]``, read off the control): on
@@ -144,6 +156,7 @@ Prints one JSON line of per-kernel numbers, then, as the last line,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -183,6 +196,7 @@ from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda  # noqa: 
 from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plan  # noqa: E402
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plan  # noqa: E402
 from repro_torch.models.api import build_model, frontend_inputs  # noqa: E402
+from repro_torch.models.layers import moe_block  # noqa: E402
 from repro_torch.models.spec import init_params, spec_map  # noqa: E402
 from repro_torch.serving import EngineConfig, InferenceEngine, Request  # noqa: E402
 
@@ -255,6 +269,8 @@ RWKV = "rwkv6-3b"
 ZAMBA = "zamba2-1.2b"
 WHISPER = "whisper-large-v3"
 VLM = "llama-3.2-vision-90b"
+MOONSHOT = "moonshot-v1-16b-a3b"
+GROK = "grok-1-314b"
 SEED = 0
 #: the published initializer_range of qwen2-1.5b, zamba2-1.2b and
 #: llama-3.2-vision (their Hugging Face configs; Whisper's init_std)
@@ -351,8 +367,12 @@ def _zamba_launches(cfg, pre: int, steps: int) -> dict:
 #: of one model call (fused or not), whether the reference initialiser
 #: makes its fp32 stack chaotic (fan-in of the 3-D attention weights
 #: taken from the head count; read off the perturbation control of phase
-#: "c"), so that phase "c" asserts on weights at INIT_RANGE instead, and
-#: the config's depth cut, if any
+#: "c"), so that phase "c" asserts on weights at INIT_RANGE instead, the
+#: config's depth cut, if any, and why; and whether its decode step
+#: couples the slots (an MoE step routes all of them as one group, and an
+#: expert's capacity drops assignments by what the other slots hold), so
+#: that only each request's first token, from its own prefill, must be
+#: the same under both policies
 SERVED = {
     MODEL: dict(
         phase="7",
@@ -393,6 +413,29 @@ SERVED = {
         norms=lambda cfg: 2 * cfg.n_layers + 1,
         chaotic=True,
         cut=dict(n_layers=10),
+        why="about 90 B parameters, which do not fit on one card",
+    ),
+    # 48 layers are 28.06 B parameters: 16 (9.80 B) fit with fp32 masters
+    MOONSHOT: dict(
+        phase="13",
+        requests=16,
+        launches=_qwen_launches,
+        norms=lambda cfg: 2 * cfg.n_layers + 1,
+        chaotic=True,
+        cut=dict(n_layers=16),
+        why="28.06 B parameters, which do not fit on one card with fp32 masters",
+        coupled=True,
+    ),
+    # one layer holds 4.92 B parameters: 2 of 64 (11.45 B with the tables)
+    GROK: dict(
+        phase="14",
+        requests=16,
+        launches=_qwen_launches,
+        norms=lambda cfg: 2 * cfg.n_layers + 1,
+        chaotic=True,
+        cut=dict(n_layers=2),
+        why="about 316 B parameters; one layer holds 4.92 B",
+        coupled=True,
     ),
 }
 
@@ -1314,16 +1357,25 @@ FLASH_CASES = [  # tests/test_kernels.py:41-50, then the redesign's edges
 ]
 
 
+def _heads(name: str) -> tuple:
+    """(query heads, KV heads, head dim) of a configuration."""
+    c = configs.get(name)
+    return c.n_heads, c.n_kv_heads, c.head_dim
+
+
+#: the self-attention shapes of the MoE paths: moonshot's MHA at 16/16
+#: heads of 128 and grok-1's GQA at 48/8
+MOE_HEADS = ((MOONSHOT, _heads(MOONSHOT)), (GROK, _heads(GROK)))
+
+
 def phase_flash(dev, g) -> dict:
-    cfg = configs.get(MODEL)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, Hkv, D = _heads(MODEL)
     cases = [(c, dt) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
-    zc = configs.get(ZAMBA)
-    zshape = (zc.n_heads, zc.n_kv_heads, zc.head_dim)
+    zshape = _heads(ZAMBA)
     cases += [
         ((1, s, s, h, hkv, d, True, 0), dt)
         for s in (200, 384)
-        for h, hkv, d in ((H, Hkv, D), zshape)
+        for h, hkv, d in ((H, Hkv, D), zshape, *(hs for _, hs in MOE_HEADS))
         for dt in (torch.float32, torch.bfloat16)
     ]
     err = 0.0
@@ -1337,12 +1389,14 @@ def phase_flash(dev, g) -> dict:
         err = max(err, _close(what, got, want, _tol(dt)))
     print(f"phase 3b: flash_attention == plain on {len(cases)} cases (max err {err})")
     # timed: qwen2-1.5b's longest and shortest prompts, then zamba2-1.2b's
-    # shared block (MHA, head dim 64); only the first goes to the JSON line
+    # shared block (MHA, head dim 64) and the MoE paths' self-attention;
+    # only the first goes to the JSON line
     timed = None
     for S, h, hkv, d, name in (
         (PROMPT_LENS[1], H, Hkv, D, MODEL),
         (PROMPT_LENS[0], H, Hkv, D, MODEL),
         (PROMPT_LENS[1], *zshape, ZAMBA),
+        *((PROMPT_LENS[1], *hs, n) for n, hs in MOE_HEADS),
     ):
         q = torch.randn(1, S, h, d, generator=g, device=dev).bfloat16()
         k = torch.randn(1, S, hkv, d, generator=g, device=dev).bfloat16()
@@ -1408,19 +1462,18 @@ def _decode_grid(B: int, Hkv: int, S: int, G: int) -> str:
 
 
 def phase_decode(dev, g) -> dict:
-    cfg = configs.get(MODEL)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, Hkv, D = _heads(MODEL)
     B, S = ENGINE["n_slots"], ENGINE["max_seq"]
-    zc = configs.get(ZAMBA)
-    zshape = (zc.n_heads, zc.n_kv_heads, zc.head_dim)
+    zshape = _heads(ZAMBA)
+    served = ((H, Hkv, D), zshape, *(hs for _, hs in MOE_HEADS))
     cases = [c + (dt,) for c in DECODE_CASES for dt in (torch.float32, torch.bfloat16)]
     cases += [
         (B, h, hkv, d, S, dt)
-        for h, hkv, d in ((H, Hkv, D), zshape)
+        for h, hkv, d in served
         for dt in (torch.float32, torch.bfloat16)
     ]
-    # the split edges at both served shapes (B * Hkv = 32: 8 splits of 64
-    # keys; 512: one split of 8 tiles): 0, 1, every tile boundary -1, 0
+    # the split edges at the served shapes (e.g. B * Hkv = 32: 8 splits of
+    # 64 keys; 512: one split of 8 tiles): 0, 1, every tile boundary -1, 0
     # and +1, S - 1, S and past S, between random lengths
     edges = [0, 1, S - 1, S, S + 88]
     edges += [e + i for e in range(64, S, 64) for i in (-1, 0, 1)]
@@ -1428,7 +1481,7 @@ def phase_decode(dev, g) -> dict:
         part = torch.tensor(edges[at : at + B // 2], device=dev, dtype=torch.int32)
         cases += [
             (B, h, hkv, d, S, dt, part)
-            for h, hkv, d in ((H, Hkv, D), zshape)
+            for h, hkv, d in served
             for dt in (torch.float32, torch.bfloat16)
         ]
     err = 0.0
@@ -1460,7 +1513,8 @@ def phase_decode(dev, g) -> dict:
     print(
         f"phase 3b: decode_attention == plain on {len(cases)} cases and "
         f"{2 * len(FULL_DECODE_CASES)} full cross caches, {len(edges)} "
-        f"edge lengths at both served shapes (max err {err})"
+        f"edge lengths at the {len(served)} served self-attention shapes (max "
+        f"err {err})"
     )
     # timed with every slot's cache full: the whole [16, 512] cache is valid
     q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
@@ -1498,6 +1552,25 @@ def phase_decode(dev, g) -> dict:
             zq[:, :, None, :], zkt, zvt, attn_mask=mask
         ),
     )
+    # the MoE paths' self caches, full: moonshot's MHA, grok-1's G = 6
+    for name, (h, hkv, d) in MOE_HEADS:
+        mq = torch.randn(B, h, d, generator=g, device=dev).bfloat16()
+        mk, mv = (
+            torch.randn(B, S, hkv, d, generator=g, device=dev).bfloat16() for _ in "kv"
+        )
+        mkt, mvt = (t.transpose(1, 2).contiguous() for t in (mk, mv))
+        mmoved = 4 * mq.numel() + 4 * valid * hkv * d + B * 4
+        mb = _bound(mmoved, 4 * d * h * valid, BF16_OPS_PER_S)
+        _time3(
+            f"decode_attention B={B} S={S} H={h} Hkv={hkv} D={d} full caches bf16 "
+            f"({name}; {_decode_grid(B, hkv, S, h // hkv)}; bound {mb[0]:.6f} ms, "
+            f"{mb[1]}, {mb[2]} bytes)",
+            lambda: decode_attention_cuda(mq, mk, mv, lens),
+            lambda: kref.decode_attention_ref(mq, mk, mv, lens),
+            lambda: F.scaled_dot_product_attention(
+                mq[:, :, None, :], mkt, mvt, attn_mask=mask, enable_gqa=hkv != h
+            ),
+        )
     # the cross caches of Whisper and the VLM, read over their full length
     for (b, h, hkv, d, s), name in zip(FULL_DECODE_CASES, (WHISPER, VLM)):
         cq = torch.randn(b, h, d, generator=g, device=dev).bfloat16()
@@ -1741,10 +1814,23 @@ RWKV_CASES = [(1, 32, 2, 16, 8), (2, 48, 3, 32, 16), (1, 20, 1, 16, 8)]  # :104
 RAGGED_T = (2, 5, 15, 16, 17, 33, 47, 63, 65, 130)
 
 
+@functools.cache
+def _csrc_kernels() -> frozenset:
+    """The names of the kernels the CUDA sources define."""
+    bounds = r"(?:__launch_bounds__\([^)]*\)\s+)?"
+    decl = re.compile(r"__global__\s+void\s+" + bounds + r"(\w+)\s*\(")
+    return frozenset(
+        m for src in _build.CSRC.glob("*.cu") for m in decl.findall(src.read_text())
+    )
+
+
 def _ours(key: str) -> bool:
     """A kernel of csrc/: its name starts in the sources' top-level
-    anonymous namespace (a template kernel's with ``void``)."""
-    return key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::"))
+    anonymous namespace (a template kernel's with ``void``) and is one
+    the sources define (PyTorch keeps kernels in anonymous namespaces
+    too, e.g. ``softmax_warp_forward``)."""
+    anon = key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::"))
+    return anon and _kernel_name(key) in _csrc_kernels()
 
 
 def _pass_split(fn, first: str, n: int = 20) -> str:
@@ -2006,23 +2092,31 @@ def _layout(cfg) -> str:
             f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
             f"{cfg.enc_len} frames"
         )
+    full, why = configs.get(cfg.name).n_layers, SERVED[cfg.name].get("why")
+    cut = f"depth cut from {full} ({why})"
     if cfg.cross_attn_every:
         g, p = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every
-        full = configs.get(cfg.name).n_layers
         return (
-            f"{cfg.n_layers} layers, depth cut from {full} (about 90 B "
-            f"parameters, which do not fit on one card): {g} groups of {p - 1} "
+            f"{cfg.n_layers} layers, {cut}: {g} groups of {p - 1} "
             f"self-attention layers and one cross layer over "
             f"{cfg.n_image_tokens} image tokens"
+        )
+    if cfg.is_moe:
+        return (
+            f"{cfg.n_layers} layers, {cut}, each with {cfg.n_experts} experts, "
+            f"top-{cfg.top_k}, d_ff {cfg.d_ff} per expert, capacity factor "
+            f"{cfg.capacity_factor}, groups of {cfg.moe_group_size} tokens"
         )
     return f"{cfg.n_layers} layers"
 
 
 def phase_serving(dev, name: str):
-    """Phases 7, 9, 10, 11, 12: one serving path at full width behind the
-    engine.  Returns the launch count of each model-path kernel over both
+    """Phases 7, 9-14: one serving path at full width behind the engine.
+    Returns the launch count of each model-path kernel over both
     policies' runs, the fp32 master weights and the prepared tree every
-    engine ran (shared, not copied per engine)."""
+    engine ran (shared, not copied per engine).  On an MoE path each
+    engine's model counts the decode steps' kept and routed assignments
+    on the card (``moe_stats``)."""
     cfg, spec = served_config(name), SERVED[name]
     ph, n_req = spec["phase"], spec["requests"]
     lo, hi = spec.get("prompts", PROMPT_LENS)
@@ -2061,6 +2155,12 @@ def phase_serving(dev, name: str):
             Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS, session=int(s))
             for i, (p, s) in enumerate(zip(prompts, sessions))
         ]
+        if cfg.is_moe:
+            moe = {
+                k: torch.zeros((), dtype=torch.int64, device=dev)
+                for k in ("kept", "assigned")
+            }
+            eng.model.moe_stats = moe
         torch.cuda.synchronize()
         for fn in MODEL_KERNELS.values():
             fn.launches = 0
@@ -2096,22 +2196,45 @@ def phase_serving(dev, name: str):
         ttft = [r.ttft for r in res]
         lat = [r.latency for r in res]
         gen_tokens = sum(len(r.tokens) for r in res)
+        drops = ""
+        if cfg.is_moe:
+            kept, routed = int(moe["kept"]), int(moe["assigned"])
+            want = steps * ENGINE["n_slots"] * cfg.n_layers * cfg.top_k
+            if routed != want:
+                raise AssertionError(
+                    f"{name}/{policy}: {routed} assignments routed, want {want}"
+                )
+            drops = (
+                f", decode steps' drop share {1 - kept / routed:.6f} "
+                f"({routed - kept} of {routed} assignments dropped)"
+            )
         print(
             f"phase {ph}: {policy}: wall {wall:.4f} s, prefills {pre}, decode steps "
             f"{steps}, decode steps/s {steps / wall:.3f}, generated tokens/s "
             f"{gen_tokens / wall:.3f}, TTFT p50 {_pct(ttft, 50):.4f} s p99 "
             f"{_pct(ttft, 99):.4f} s, latency p50 {_pct(lat, 50):.4f} s p99 "
-            f"{_pct(lat, 99):.4f} s, release runs {len(eng.release_events)}; "
-            f"launches {got}"
+            f"{_pct(lat, 99):.4f} s, release runs {len(eng.release_events)}"
+            f"{drops}; launches {got}"
         )
         del eng
-    if tokens["corec"] != tokens["rss"]:
-        diff = [r for r in tokens["corec"] if tokens["corec"][r] != tokens["rss"][r]]
+    diff = [r for r in tokens["corec"] if tokens["corec"][r] != tokens["rss"][r]]
+    if spec.get("coupled"):
+        first = [r for r in diff if tokens["corec"][r][0] != tokens["rss"][r][0]]
+        if first:
+            raise AssertionError(f"{name}: first tokens differ for rids {first}")
+        same = (
+            f"identical first tokens; {len(diff)} of {n_req} requests differ in a "
+            f"later token (the decode step's capacity couples the slots, which "
+            f"the two policies batch differently)"
+        )
+    elif diff:
         raise AssertionError(f"{name}: tokens differ between policies for rids {diff}")
+    else:
+        same = "identical tokens"
     gc.collect()
     print(
         f"phase {ph}: all {n_req} requests answered with {NEW_TOKENS + 1} tokens "
-        f"under both policies, identical tokens, head == tail == {n_req}; "
+        f"under both policies, {same}, head == tail == {n_req}; "
         f"launches over both runs {launches}; peak device memory {_peak_gb()} "
         f"(torch.cuda.max_memory_allocated)"
     )
@@ -2277,14 +2400,15 @@ def encdec_prefill_flops(cfg, n: int) -> tuple:
 
 
 def phase_breakdown(dev, name: str, p) -> None:
-    """Phases 7b, 9b, 10b, 11b, 12b: where one decode step (every slot at
+    """Phases 7b, 9b-14b: where one decode step (every slot at
     the 384 positions of the longest prompt of 7-10) and one prefill of
     the path's longest prompt spend their time: host time per call
     (synchronised, unprofiled, median of 10), kernel time and device
     launches per call from a torch.profiler window of 5 calls, and the
     device's idle share between them; then, where the path folds
     residual adds into norms, the same with the fused norms split back
-    into the eager pair.  ``p`` is the prepared tree the engines ran."""
+    into the eager pair; on an MoE path, the MoE block alone.  ``p`` is
+    the prepared tree the engines ran."""
     cfg = served_config(name)
     ph = SERVED[name]["phase"]
     model = build_model(cfg)
@@ -2365,6 +2489,35 @@ def phase_breakdown(dev, name: str, p) -> None:
             f"launches {e_launches - launches:g} fewer ({fused} fused norms), "
             f"kernels {(e_dev - dev_ms) * 1e3:.1f} us less"
         )
+    if cfg.is_moe:
+        _moe_layer(dev, cfg, ph, p, n_pre)
+
+
+def _moe_layer(dev, cfg, ph: str, p, n_pre: int) -> None:
+    """The MoE block as a layer: layer 0's block alone on random bf16
+    inputs at a decode step's 16 tokens and a prefill's, its host ms,
+    kernel ms and device launches per call (``_profile_call``) beside
+    the bytes it must move (every expert's weights, routed to or not,
+    and the fp32 router)."""
+    moe_p = {k: v[0] for k, v in p["layers"]["moe"].items()}
+    w_bytes = sum(v.numel() * v.element_size() for v in moe_p.values())
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for what, T in (("decode step", ENGINE["n_slots"]), ("prefill", n_pre)):
+        h = torch.randn(1, T, cfg.d_model, generator=g, device=dev).bfloat16()
+
+        def call():
+            with torch.inference_mode():
+                moe_block(moe_p, h, cfg)
+
+        host_ms, dev_ms, launches, kernels = _profile_call(call)
+        top = sorted(kernels, key=lambda k: k[0], reverse=True)[:4]
+        shown = ", ".join(f"{k[2][:40]} x{k[1] // 5} {k[0] / 5:.1f} us" for k in top)
+        print(
+            f"phase {ph}b: {cfg.name} MoE block alone, {what} [{T} tokens]: host "
+            f"{host_ms:.4f} ms/call, kernels {dev_ms:.4f} ms/call, {launches:g} "
+            f"device launches/call; bound {w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({w_bytes} bytes of weights); top kernels per call: {shown}"
+        )
 
 
 def _eager_add_norm(x, delta, weight, eps=1e-5, impl="auto"):
@@ -2416,6 +2569,13 @@ def _teacher_forced(cfg, params, batch, steps):
     return out
 
 
+def _loss(cfg, params, batch) -> dict:
+    """The model's forward-only loss on ``batch``: the total and each
+    metric as Python floats."""
+    total, metrics = build_model(cfg).loss(params, batch)
+    return {"total": float(total), **{k: float(v) for k, v in metrics.items()}}
+
+
 def _max_diff(xs, ys) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
 
@@ -2425,11 +2585,13 @@ def _same_argmax(xs, ys) -> int:
 
 
 def phase_model_parity(dev, name: str, held: list) -> None:
-    """Phases 8, 9c, 10c, 11c, 12c: the kernels against the plain
-    versions through the whole model at full width (the VLM at its depth
-    cut): a 300-token prefill and 4 teacher-forced decode steps, fp32
-    matmuls in full fp32, the logits within 1e-3 and the argmax equal at
-    every step.  Whisper and the VLM take seeded standard normal audio
+    """Phases 8, 9c-14c: the kernels against the plain versions through
+    the whole model at full width (the VLM and the MoE paths at their
+    depth cuts): a 300-token prefill and 4 teacher-forced decode steps,
+    fp32 matmuls in full fp32, the logits within 1e-3 and the argmax
+    equal at every step; then the model's loss on the 300 tokens, their
+    next tokens as labels, its total and each metric within 1e-3.
+    Whisper and the VLM take seeded standard normal audio
     frames and image embeddings, not the engine's zeros, so that the
     encoder's input and the cross-attention's memory vary.  ``held``
     hands over the serving phase's fp32 weights: they are released
@@ -2461,9 +2623,22 @@ def phase_model_parity(dev, name: str, held: list) -> None:
     plain32 = f32.replace(attention_impl="xla")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     batch = model_batch(f32, prompt, dev, generator=gen)
+    labels = torch.cat([prompt[:, 1:], steps[0]], dim=1)
+    loss_batch = dict(batch, labels=labels)
 
     def run(c, p):
         return _teacher_forced(c, p, batch, steps)
+
+    def check_loss(p, what):
+        kern, plain = _loss(f32, p, loss_batch), _loss(plain32, p, loss_batch)
+        for k in kern:
+            if not abs(kern[k] - plain[k]) <= 1e-3:
+                raise AssertionError(
+                    f"phase {ph}: {what}: loss {k} {kern[k]} with the kernels, "
+                    f"{plain[k]} plain"
+                )
+        err = max(abs(kern[k] - plain[k]) for k in kern)
+        return f"loss {kern} (kernels) vs {plain} (plain), max diff {err:.3e}"
 
     def check(kern, plain, what):
         for i, (a, b) in enumerate(zip(kern, plain)):
@@ -2486,7 +2661,8 @@ def phase_model_parity(dev, name: str, held: list) -> None:
         note = "reported, not asserted: the stack is chaotic at these weights"
     else:
         check(kern, base, "reference initialiser")
-        note = "<= 1e-3 asserted, argmax equal at all 5 steps"
+        losses = check_loss(params, "reference initialiser")
+        note = f"<= 1e-3 asserted, argmax equal at all 5 steps; {losses}, asserted"
     print(
         f"phase {ph}: {name} fp32, the serving phase's weights (reference "
         f"initialiser): kernels vs plain max abs logit diff {kern_diff:.3e} ({note}); "
@@ -2508,13 +2684,14 @@ def phase_model_parity(dev, name: str, held: list) -> None:
     wparams = init_params(specs, gen, dev)
     what = f"initializer_range {INIT_RANGE}"
     err = check(run(f32, wparams), run(plain32, wparams), what)
+    losses = check_loss(wparams, what)
     kern16 = run(cfg, wparams)
     plain16 = run(cfg.replace(attention_impl="xla"), wparams)
     print(
         f"phase {ph}: {name} fp32, weights at initializer_range {INIT_RANGE}: "
         f"kernels vs plain max abs logit diff {err:.3e} (<= 1e-3 asserted), "
-        f"argmax equal at all 5 steps; bf16: max abs logit diff "
-        f"{_max_diff(kern16, plain16):.3e}, argmax equal at "
+        f"argmax equal at all 5 steps; {losses} (<= 1e-3 asserted); bf16: max "
+        f"abs logit diff {_max_diff(kern16, plain16):.3e}, argmax equal at "
         f"{_same_argmax(kern16, plain16)}/5 steps (reported, not asserted); "
         f"peak device memory {_peak_gb()}"
     )
@@ -2591,7 +2768,7 @@ def main() -> int:
         if k["name"] == "done_prefix_batch":
             k["launches"] += launches["done_prefix_batch_mapped"]
             k["mapped_launches"] = launches["done_prefix_batch_mapped"]
-    print(f"launches over the five serving paths: {launches}")
+    print(f"launches over the {len(SERVED)} serving paths: {launches}")
     print(json.dumps({"kernels": [kernel, *model_kernels]}))
     print(
         json.dumps(

@@ -1,6 +1,6 @@
 """The port's model stack: the model families of ``repro.models``.
 
 ``api.build_model(cfg)`` returns the model for a config: the decoder
-(dense and VLM), RWKV6, Zamba2 and Whisper are ported; the MoE
-configurations raise ``NotImplementedError`` naming their ROADMAP item.
+(dense, MoE and VLM), RWKV6, Zamba2 and Whisper, each with its
+prefill, decode step and forward-only loss.
 """

@@ -1,10 +1,9 @@
 """Model construction dispatch: ArchConfig -> model object.
 
-Ported: the decoder (``transformer.DecoderLM``: the dense stack and the
-VLM's cross-attention groups), RWKV6 (``rwkv.Rwkv6LM``), the Zamba2
-hybrid (``zamba.ZambaLM``) and Whisper (``whisper.EncDecLM``).  The MoE
-configurations of the decoder raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+Every family of the repo's ten configurations is ported: the decoder
+(``transformer.DecoderLM``: the dense stack, the MoE stack and the VLM's
+cross-attention groups), RWKV6 (``rwkv.Rwkv6LM``), the Zamba2 hybrid
+(``zamba.ZambaLM``) and Whisper (``whisper.EncDecLM``).
 """
 
 from __future__ import annotations

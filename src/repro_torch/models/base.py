@@ -1,5 +1,6 @@
-"""What the port's model families share: stacked layer specs, and the
-``init``/``prepare``/``init_cache`` half of their API.
+"""What the port's model families share: stacked layer specs, the
+``init``/``prepare``/``init_cache`` half of their API, and the label
+log-probabilities their losses take.
 
 Parameters travel as an argument (a nested dict of tensors, the
 reference's pytree), so one model object serves fp32 masters and
@@ -15,7 +16,7 @@ from torch import nn
 
 from ..compat import resolve_device
 from ..config import ArchConfig
-from .layers import cdtype
+from .layers import cdtype, label_logprobs, unembed
 from .spec import ParamSpec, init_params, spec_map
 
 __all__ = ["LMBase"]
@@ -71,6 +72,21 @@ class LMBase(nn.Module):
             return tree if keep or not tree.is_floating_point() else tree.to(dt)
 
         return go(params)
+
+    def _label_logprobs(self, params, x, labels):
+        """(logsumexp, label logit) of the fp32 logits of the hidden
+        states ``x`` [B, S, d] at ``labels`` [B, S], the reference's
+        ``unembed(...).astype(float32)`` then ``label_logprobs``."""
+        logits = unembed(params["embed"], x, self.cfg).float()
+        return label_logprobs(logits, labels, self.cfg.vocab)
+
+    def _mean_ce(self, params, x, labels):
+        """The unmasked mean cross-entropy, as (ce, {"ce": ce}): the loss
+        of the families without a z-loss or aux term (RWKV6, Zamba2,
+        Whisper)."""
+        lse, ll = self._label_logprobs(params, x, labels)
+        ce = (lse - ll).mean()
+        return ce, {"ce": ce}
 
     def init_cache(self, batch_size: int, seq_len: int, device):
         """An empty cache of :meth:`cache_specs` on ``device``."""

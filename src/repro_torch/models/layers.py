@@ -1,12 +1,12 @@
-"""Dense transformer building blocks: the port of ``repro.models.layers``.
+"""Transformer building blocks: the port of ``repro.models.layers``.
 
 Blocks take parameters as nested dicts of tensors (the reference's
 pytree, leaf for leaf) and the compute dtype from the ``ArchConfig``.
 Attention and RMSNorm dispatch through :mod:`repro_torch.kernels.ops`;
-the LayerNorm (Whisper's) is plain PyTorch, as the reference's is plain
-XLA.  The reference's sharding constraints (``rules``) have no
-counterpart on one card and are left out; the MoE block is not ported
-(ROADMAP.md Queue A, item 10).
+the LayerNorm (Whisper's) and the MoE block's routing, dispatch and
+expert products are plain PyTorch, as the reference's are plain XLA.
+The reference's sharding constraints (``rules``) have no counterpart on
+one card and are left out.
 
 Weights are cast to the compute dtype at use, as the reference's
 ``use_weight`` does.  The cast is a no-op for a tree that went through
@@ -17,6 +17,7 @@ which gives the same values without re-reading fp32 masters per step.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -44,7 +45,15 @@ __all__ = [
     "mlp_specs",
     "gelu_tanh",
     "mlp_block",
+    "moe_specs",
+    "moe_groups",
+    "moe_capacity",
+    "top_k",
+    "MoePlan",
+    "moe_route",
+    "moe_block",
     "embed_specs",
+    "label_logprobs",
     "embed_tokens",
     "unembed",
 ]
@@ -329,6 +338,139 @@ def mlp_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# MoE (top-k, capacity-based sort dispatch within token groups)
+# ----------------------------------------------------------------------
+def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamSpec((d, E), ("embed", None), scale=0.02),
+        "w1": ParamSpec((E, d, ff), ("experts", "embed", "expert_mlp")),
+        "w3": ParamSpec((E, d, ff), ("experts", "embed", "expert_mlp")),
+        "w2": ParamSpec((E, ff, d), ("experts", "expert_mlp", "embed")),
+    }
+
+
+def moe_groups(T: int, group_size: int) -> int:
+    """The reference's group count: ``T // group_size`` (at least 1),
+    lowered until it divides T."""
+    G = max(1, T // group_size)
+    while T % G:
+        G -= 1
+    return G
+
+
+def moe_capacity(Tg: int, cfg: ArchConfig) -> int:
+    """Slots per expert and group: ``Tg k / E cf`` in Python floats,
+    truncated, at least 1 (the reference's ``layers.py:319``)."""
+    return max(1, int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` on the last axis: the k largest, ties lowest index
+    first (the first k of a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(x, stable=True, dim=-1, descending=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@dataclass
+class MoePlan:
+    """Where :func:`moe_route` sends each of a group's ``Tg k``
+    assignments, token-major (token t's j-th choice at ``t k + j``):
+    expert ``idx``, rank ``slot`` among that expert's assignments in the
+    group (their stable sort by expert), kept when ``slot < cap``; the
+    normalised fp32 ``gate``; the load-balancing ``aux`` over all tokens."""
+
+    idx: torch.Tensor  # [G, Tg * k] int64
+    slot: torch.Tensor  # [G, Tg * k] int64
+    keep: torch.Tensor  # [G, Tg * k] bool
+    gate: torch.Tensor  # [G, Tg * k] fp32
+    cap: int
+    aux: torch.Tensor  # fp32 scalar
+
+
+def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ArchConfig) -> MoePlan:
+    """The reference's routing (``layers.py:303-336``) for tokens
+    ``xg`` [G, Tg, d]: fp32 router logits and softmax, top-k with its
+    gates renormalised, the Switch aux loss ``E sum_e f_e p_e`` (every
+    top-k choice counted, dropped or not), and each group's stable sort
+    by expert, whose rank past ``cap`` drops an assignment."""
+    G, Tg, _ = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = torch.matmul(xg.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_k, idx_k = top_k(probs, k)  # [G, Tg, k]
+    gate_k = gate_k / gate_k.sum(-1, keepdim=True).clamp_min(1e-9)
+    eidx = idx_k.reshape(G, Tg * k)
+    counts = torch.zeros(G, E, dtype=torch.int64, device=xg.device)
+    counts.scatter_add_(1, eidx, torch.ones_like(eidx))
+    # no bincount: on the card it reads the largest id back to the host
+    frac = counts.sum(0).float() / (G * Tg * k)
+    aux = E * torch.sum(probs.mean((0, 1)) * frac)
+    sorted_e, order = torch.sort(eidx, stable=True, dim=1)
+    starts = counts.cumsum(1) - counts
+    ranks = torch.arange(Tg * k, device=xg.device) - starts.gather(1, sorted_e)
+    slot = torch.empty_like(ranks).scatter_(1, order, ranks)  # token-major
+    cap = moe_capacity(Tg, cfg)
+    return MoePlan(eidx, slot, slot < cap, gate_k.reshape(G, Tg * k), cap, aux)
+
+
+def moe_block(p, x: torch.Tensor, cfg: ArchConfig, stats=None):
+    """Top-k MoE with group-local dispatch (the reference's
+    ``moe_block``, ``layers.py:279-365``): returns ``(y, aux)``.
+
+    Each group's kept assignments fill an ``[E, cap, d]`` buffer; every
+    expert's SwiGLU FFN runs on its whole buffer, empty slots included
+    (one batched matmul per weight); each token then sums its kept
+    outputs, each scaled by its gate, in the compute dtype.  A dropped
+    assignment is routed to a spare buffer row that no expert reads and
+    combines as 0: the reference's out-of-bounds expert id ``E``, which
+    its scatter drops and its gather fills with 0.  A token's sum runs in
+    the reference's scatter-add order (ascending expert id from 0), as a
+    loop over its k choices, never an atomic add: the card gives the same
+    bits on every run.  With ``stats`` (a dict of 0-d int64 tensors
+    ``"kept"`` and ``"assigned"`` on x's device), the kept and routed
+    assignment counts are added to it on the device, without a sync."""
+    dt = cdtype(cfg)
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = moe_groups(T, cfg.moe_group_size)
+    Tg = T // G
+    xg = x.reshape(G, Tg, d)
+    plan = moe_route(p["router"], xg, cfg)
+    cap = plan.cap
+    if stats is not None:
+        stats["kept"] += plan.keep.sum()
+        stats["assigned"] += plan.keep.numel()
+    # the flat buffer row of each assignment; E * cap is the spare row
+    row = torch.where(plan.keep, plan.idx * cap + plan.slot, E * cap)
+    src = xg.to(dt).repeat_interleave(k, dim=1)  # [G, Tg * k, d]
+    buf = torch.zeros(G, E * cap + 1, d, dtype=dt, device=x.device)
+    # kept rows are distinct; only the spare row takes several writes
+    buf.scatter_(1, row[..., None].expand(-1, -1, d), src)
+    h_in = buf[:, : E * cap].reshape(G, E, cap, d).transpose(0, 1)
+    h_in = h_in.reshape(E, G * cap, d)
+    h = F.silu(torch.matmul(h_in, _w(p["w1"], dt)))
+    h = h * torch.matmul(h_in, _w(p["w3"], dt))
+    out_e = torch.matmul(h, _w(p["w2"], dt)).reshape(E, G, cap, d).transpose(0, 1)
+    out_e = torch.cat(
+        [out_e.reshape(G, E * cap, d), out_e.new_zeros(G, 1, d)], dim=1
+    )  # the spare row reads 0
+    y_asg = out_e.gather(1, row[..., None].expand(-1, -1, d))
+    y_asg = y_asg * (plan.gate.to(dt) * plan.keep.to(dt))[..., None]
+    # each token's k outputs in ascending expert order, summed from 0
+    by_expert = plan.idx.reshape(G, Tg, k).argsort(dim=-1)
+    y_asg = y_asg.reshape(G, Tg, k, d).gather(
+        2, by_expert[..., None].expand(-1, -1, -1, d)
+    )
+    y = torch.zeros(G, Tg, d, dtype=dt, device=x.device)
+    for j in range(k):
+        y = y + y_asg[:, :, j]
+    return y.reshape(B, S, d), plan.aux
+
+
+# ----------------------------------------------------------------------
 # Embedding / unembedding
 # ----------------------------------------------------------------------
 def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -337,6 +479,20 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     if not cfg.tie_embeddings:
         s["out"] = ParamSpec((d, V), ("embed", "vocab"), scale=0.02)
     return s
+
+
+def label_logprobs(logits_f32: torch.Tensor, labels: torch.Tensor, real_vocab: int):
+    """(logsumexp, label logit) per position (the reference's
+    ``layers.py:379-394``): the padded vocabulary tail masked at -1e30
+    out of the logsumexp, the label's logit by a where-reduction."""
+    V = logits_f32.shape[-1]
+    iota = torch.arange(V, device=logits_f32.device)
+    if V != real_vocab:
+        logits_f32 = torch.where(iota < real_vocab, logits_f32, -1e30)
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    hit = iota == labels[..., None].to(iota.dtype)
+    ll = torch.where(hit, logits_f32, 0.0).sum(-1)
+    return lse, ll
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -10,7 +10,8 @@ card) and :func:`~repro_torch.kernels.ops.rwkv6_step` in decode.  The
 decode state is O(1) per layer: the ``[H, N, N]`` fp32 WKV state and
 the two token-shift vectors.
 
-API as ``transformer.DecoderLM``'s.  The reference's two cast points
+API as ``transformer.DecoderLM``'s; ``loss`` returns the mean
+cross-entropy alone, as the reference's does.  The reference's two cast points
 are kept: prefill rounds every leaf to the compute dtype first
 (``cast_tree``, ``rwkv.py:181-182``); decode uses the stored leaves and
 casts at use, so ``u``, ``w_base``, ``w_lora_b`` and the GroupNorm
@@ -208,6 +209,13 @@ class Rwkv6LM(LMBase):
         if not collect_state:
             return x, None
         return x, tuple(torch.stack(s) for s in zip(*states))
+
+    @torch.inference_mode()
+    def loss(self, params, batch):
+        """The mean cross-entropy of ``batch["labels"]``, forward only
+        (the reference's ``rwkv.py:195-201``): (ce, {"ce": ce})."""
+        x, _ = self.forward(params, batch["tokens"])
+        return self._mean_ce(params, x, batch["labels"])
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch_size: int, seq_len: int):

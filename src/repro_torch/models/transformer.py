@@ -2,20 +2,23 @@
 ``repro.models.transformer.DecoderLM``.
 
 Covers the dense GQA/MHA configurations (qwen2, qwen2.5, granite,
-minicpm) and the VLM's period/group stack (llama-3.2-vision:
+minicpm), the MoE configurations (grok-1, moonshot: each layer's MLP
+is ``layers.moe_block``, whose load-balancing aux loss ``forward`` sums
+over the layers) and the VLM's period/group stack (llama-3.2-vision:
 ``cross_attn_every = P``, so ``n_layers / P`` groups of P - 1
 self-attention layers and one cross-attention layer on the image
 embeddings, non-causal and without RoPE, whose K/V prefill writes into
 a read-only cross cache ``[G, B, n_image_tokens, Hkv, dh]``).  The
 layers are stacked ``[L, ...]`` (VLM: ``[G, P - 1, ...]`` and
 ``[G, ...]``) leaves, as the reference keeps them for ``lax.scan``;
-here Python loops walk them in the reference's order.  The MoE block is
-not ported (ROADMAP.md Queue A, item 10), nor is the training loss
-(item 12).
+here Python loops walk them in the reference's order.
 
 API (the reference's, minus ``rules``):
   param_specs() / init(generator, device) / prepare(params)
   forward(params, tokens, image_embeds, collect_kv) -> (hidden, caches, aux)
+  loss(params, batch) -> (total, {"ce", "aux", "zloss"}), the batch
+      carrying ``tokens``, ``labels`` and optionally ``loss_mask`` (and
+      the VLM's ``image_embeds``); forward only, under inference mode
   prefill(params, batch, max_seq) -> (cache, last_logits), the VLM's
       batch carrying ``image_embeds`` [B, n_image_tokens, d]
   decode_step(params, cache, tokens) -> (cache, logits)
@@ -29,10 +32,10 @@ Differences from the reference, none of which changes a value:
 * A cache write at a length past the cache clamps to the last
   position, as the reference's ``dynamic_update_slice`` does (an idle
   decode slot keeps stepping and its length passes ``max_seq``).
-* ``prepare`` casts every weight but the norms' to the compute dtype
-  once; prefill still rounds the norm weights to it (the reference's
-  ``cast_tree``), decode passes them as stored (fp32), as the reference
-  does.
+* ``prepare`` casts every weight but the norms' and the MoE router's
+  to the compute dtype once; prefill still rounds those to it (the
+  reference's ``cast_tree``; the router is then upcast to fp32 again),
+  decode passes them as stored (fp32), as the reference does.
 * Each residual add is folded into the norm after it: a block's output
   travels to the next norm (or the final one) as ``delta``, and
   ``apply_add_norm`` returns the sum, bit for bit the reference's
@@ -62,6 +65,8 @@ from .layers import (
     embed_tokens,
     mlp_block,
     mlp_specs,
+    moe_block,
+    moe_specs,
     norm_specs,
     rope_tables,
     unembed,
@@ -72,18 +77,22 @@ __all__ = ["DecoderLM"]
 
 
 class DecoderLM(LMBase):
-    """``prepare`` casts every weight but the norms' (decode reads those
-    as stored, fp32)."""
+    """``prepare`` casts every weight but the norms' and the MoE router's
+    (decode reads those as stored, fp32).
 
-    FP32_KEYS = ("ln1", "ln2", "final_norm")
+    An MoE decode step routes all of its B slots as one group of B
+    tokens (the reference's semantics): an expert's capacity comes from
+    B, and which assignments it drops depends on what the other slots
+    hold, so a request's tokens after its first depend on the requests
+    decoded beside it.  Setting ``moe_stats`` to a dict of 0-d int64
+    tensors ``{"kept", "assigned"}`` on the device makes every decode
+    step add its MoE assignment counts to it (``layers.moe_block``)."""
+
+    FP32_KEYS = ("ln1", "ln2", "final_norm", "router")
 
     def __init__(self, cfg: ArchConfig):
         super().__init__(cfg)
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE block is not ported yet: ROADMAP.md "
-                "Queue A, item 10"
-            )
+        self.moe_stats = None
         self.period = cfg.cross_attn_every  # 0: the homogeneous stack
         if self.period:
             if cfg.n_layers % self.period:
@@ -101,12 +110,16 @@ class DecoderLM(LMBase):
     # ------------------------------------------------------------------
     def _layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {
+        s = {
             "ln1": norm_specs(cfg),
             "attn": attn_specs(cfg),
             "ln2": norm_specs(cfg),
-            "mlp": mlp_specs(cfg),
         }
+        if cfg.is_moe:
+            s["moe"] = moe_specs(cfg)
+        else:
+            s["mlp"] = mlp_specs(cfg)
+        return s
 
     def _cross_layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -153,13 +166,21 @@ class DecoderLM(LMBase):
     def _self_layer(self, lp, x, delta, tables):
         """One layer on the residual ``x`` and the previous layer's
         output ``delta`` (None before the first), not yet added: returns
-        the residual, this layer's MLP output, not yet added, and the
-        K/V.  Each add goes into the norm after it (``apply_add_norm``)."""
+        the residual, this layer's MLP (or MoE) output, not yet added,
+        the K/V and the MoE aux loss (None for a dense MLP).  Each add
+        goes into the norm after it (``apply_add_norm``)."""
         cfg = self.cfg
         x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
         a, kv = attention_block(lp["attn"], h, cfg, tables)
         x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
-        return x, self._scaled(mlp_block(lp["mlp"], h2, cfg)), kv
+        m, aux = self._ffn(lp, h2)
+        return x, self._scaled(m), kv, aux
+
+    def _ffn(self, lp, h, stats=None):
+        """The layer's MLP, or its MoE block: (output, aux or None)."""
+        if "moe" in lp:
+            return moe_block(lp["moe"], h, self.cfg, stats)
+        return mlp_block(lp["mlp"], h, self.cfg), None
 
     def _cross_layer(self, lp, x, delta, memory):
         """A VLM cross layer, as :meth:`_self_layer`: attention on the
@@ -176,17 +197,21 @@ class DecoderLM(LMBase):
     def _forward(self, params, tokens, image_embeds, kv_out):
         """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
         None, each self layer's K/V go into ``kv_out["k"/"v"][idx, :, :S]``
-        and each cross layer's into ``kv_out["cross_k"/"cross_v"][g]``."""
+        and each cross layer's into ``kv_out["cross_k"/"cross_v"][g]``.
+        Returns the final hidden states and the sum of the layers' MoE
+        aux losses (0 for a dense stack), in fp32."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         mem = image_embeds.to(cdtype(cfg)) if self.period else None
-        delta = None
+        delta, auxes = None, []
         for kind, lp, idx in self._stack_walk(params):
             if kind == "self":
-                x, delta, kv = self._self_layer(lp, x, delta, tables)
+                x, delta, kv, aux = self._self_layer(lp, x, delta, tables)
+                if aux is not None:
+                    auxes.append(aux)
                 if kv_out is not None:
                     kv_out["k"][idx][:, :S] = kv["k"]
                     kv_out["v"][idx][:, :S] = kv["v"]
@@ -196,7 +221,9 @@ class DecoderLM(LMBase):
                     kv_out["cross_k"][idx] = kv["k"]
                     kv_out["cross_v"][idx] = kv["v"]
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
-        return x
+        if not auxes:
+            return x, torch.zeros((), device=x.device)
+        return x, torch.stack(auxes).sum()
 
     @torch.inference_mode()
     def forward(self, params, tokens, image_embeds=None, collect_kv: bool = False):
@@ -204,10 +231,30 @@ class DecoderLM(LMBase):
         d]) -> (hidden [B, S, d], caches-or-None, aux_loss)."""
         caches = self.init_cache(*tokens.shape, tokens.device) if collect_kv else None
         params = cast_tree(params, cdtype(self.cfg))
-        x = self._forward(params, tokens, image_embeds, caches)
+        x, aux = self._forward(params, tokens, image_embeds, caches)
         if caches is not None:
             del caches["lengths"]
-        return x, caches, torch.zeros((), device=x.device)
+        return x, caches, aux
+
+    @torch.inference_mode()
+    def loss(self, params, batch):
+        """The training loss, forward only (the reference's
+        ``transformer.py:221-234``): masked mean cross-entropy over the
+        real vocabulary, plus ``1e-4`` times the masked mean of
+        logsumexp squared (z-loss) and ``0.01`` times the MoE aux loss.
+        ``loss_mask`` defaults to ones.  Returns (total, {"ce", "aux",
+        "zloss"}), fp32 scalars."""
+        x, _, aux = self.forward(
+            params, batch["tokens"], image_embeds=batch.get("image_embeds")
+        )
+        lse, ll = self._label_logprobs(params, x, batch["labels"])
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+        denom = mask.sum().clamp_min(1.0)
+        ce = torch.sum((lse - ll) * mask) / denom
+        zloss = 1e-4 * torch.sum(lse.square() * mask) / denom
+        total = ce + zloss + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "zloss": zloss}
 
     # ------------------------------------------------------------------
     # serving: prefill + decode
@@ -247,7 +294,7 @@ class DecoderLM(LMBase):
             raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
         params = cast_tree(params, cdtype(self.cfg))
         cache = self.init_cache(B, max_seq, tokens.device)
-        x = self._forward(params, tokens, batch.get("image_embeds"), cache)
+        x, _ = self._forward(params, tokens, batch.get("image_embeds"), cache)
         cache["lengths"].fill_(S)
         logits = unembed(params["embed"], x[:, -1:], self.cfg)
         return cache, logits[:, 0]
@@ -283,7 +330,8 @@ class DecoderLM(LMBase):
                 ck, cv = cache["cross_k"][idx], cache["cross_v"][idx]
                 a = cross_attention_decode(lp["attn"], h, ck, cv, mem_len, cfg)
             x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
-            delta = self._scaled(mlp_block(lp["mlp"], h2, cfg))
+            ffn = self._ffn(lp, h2, self.moe_stats)[0]  # the aux is dropped
+            delta = self._scaled(ffn)
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
         logits = unembed(params["embed"], x, cfg)
         return dict(cache, lengths=new_len), logits[:, 0]

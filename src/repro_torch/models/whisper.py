@@ -18,9 +18,11 @@ API as ``transformer.DecoderLM``'s, with the audio:
   encode(params, audio_embeds) -> encoder output [B, enc_len, d]
   forward(params, tokens, audio_embeds, collect_kv)
       -> (hidden, (k, v, cross_k, cross_v) stacked per layer, or None)
+  loss(params, batch) -> (ce, {"ce": ce}), the mean cross-entropy of
+      ``labels``, the batch carrying ``tokens`` and ``audio_embeds``;
+      forward only, under inference mode
   prefill(params, batch, max_seq), the batch carrying ``audio_embeds``
   decode_step(params, cache, tokens)
-The training loss is not ported (ROADMAP.md Queue A, item 12).
 
 The reference's two cast points are kept: prefill rounds every leaf to
 the compute dtype (``cast_tree``), the LayerNorm weights and biases
@@ -160,6 +162,13 @@ class EncDecLM(LMBase):
         if caches is None:
             return x, None
         return x, tuple(caches[k] for k in ("k", "v", "cross_k", "cross_v"))
+
+    @torch.inference_mode()
+    def loss(self, params, batch):
+        """The mean cross-entropy of ``batch["labels"]``, forward only
+        (the reference's ``whisper.py:136-142``): (ce, {"ce": ce})."""
+        x, _ = self.forward(params, batch["tokens"], batch["audio_embeds"])
+        return self._mean_ce(params, x, batch["labels"])
 
     # ------------------------------------------------------------------
     # serving: prefill + decode

@@ -15,7 +15,8 @@ attention block: the port of ``repro.models.zamba.ZambaLM``.
 * The stack is ``n_groups`` x ``period`` Mamba blocks, each group ended
   by the shared block, then ``n_extra`` Mamba blocks (``mamba_x``).
 
-API as ``transformer.DecoderLM``'s.  The reference's two cast points
+API as ``transformer.DecoderLM``'s; ``loss`` returns the mean
+cross-entropy alone, as the reference's does.  The reference's two cast points
 are kept: prefill rounds every leaf to the compute dtype first
 (``cast_tree``); decode uses the stored leaves, so ``A_log``, ``D``,
 ``dt_bias``, the gated-norm weight and the norms stay fp32 there.
@@ -300,6 +301,13 @@ class ZambaLM(LMBase):
         ys = tuple(cache[k] for k in ("ssm_g", "conv_g", "attn_k", "attn_v"))
         ys_x = (cache["ssm_x"], cache["conv_x"]) if self.n_extra else None
         return x, ys, ys_x
+
+    @torch.inference_mode()
+    def loss(self, params, batch):
+        """The mean cross-entropy of ``batch["labels"]``, forward only
+        (the reference's ``zamba.py:311-317``): (ce, {"ce": ce})."""
+        x, _, _ = self.forward(params, batch["tokens"])
+        return self._mean_ce(params, x, batch["labels"])
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch_size: int, seq_len: int):

@@ -8,7 +8,8 @@ on the machine with the card, where JAX is not installed::
 
 Shapes are those of the serving paths (qwen2-1.5b, rwkv6-3b,
 zamba2-1.2b, whisper-large-v3's encoder and cross caches, the VLM's
-cross-attention) and of the reference's sweeps; tolerances are those of
+cross-attention, moonshot's and grok-1's self-attention and MoE block)
+and of the reference's sweeps; tolerances are those of
 ``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``; the WKV6 and SSD
 scans ``2e-4`` in fp32, the reference's own for them), done-prefix
 exact, and the claim check exact on ``chip_smoke.py``'s edge set.  Each
@@ -182,11 +183,19 @@ def test_cuda_add_rmsnorm_from_two_threads_equals_serial():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 200, 12, 2, 128), (1, 384, 32, 32, 64)])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 200, 12, 2, 128),
+        (1, 384, 32, 32, 64),
+        (1, 384, 16, 16, 128),
+        (1, 384, 48, 8, 128),
+    ],
+)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_flash_attention_equals_plain_on_card(shape, dtype):
-    """qwen2-1.5b's GQA prefill shape and zamba2-1.2b's shared block
-    (MHA, head dim 64)."""
+    """qwen2-1.5b's GQA prefill shape, zamba2-1.2b's shared block (MHA,
+    head dim 64), moonshot's MHA and grok-1's GQA 48/8 (head dim 128)."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
     tdt = DTYPES[dtype]
@@ -204,10 +213,13 @@ def test_cuda_flash_attention_equals_plain_on_card(shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(12, 2, 128), (32, 32, 64)])
+@pytest.mark.parametrize(
+    "shape", [(12, 2, 128), (32, 32, 64), (16, 16, 128), (48, 8, 128)]
+)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_decode_attention_equals_plain_on_card(shape, dtype):
-    """qwen2-1.5b's and zamba2-1.2b's heads over 16 512-position caches."""
+    """qwen2-1.5b's, zamba2-1.2b's, moonshot's and grok-1's heads over 16
+    512-position caches."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
     tdt = DTYPES[dtype]
@@ -337,6 +349,87 @@ def test_cuda_cross_attention_models_equal_plain(name):
     want = run(cfg.replace(attention_impl="xla"))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+#: the MoE decoders at card-sized heads (64 wide), drops on (capacity 1.25)
+MOE_MODELS = {
+    "grok-1-314b": dict(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256),
+    "moonshot-v1-16b-a3b": dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MOE_MODELS))
+def test_cuda_moe_models_equal_plain(name):
+    """The MoE stacks in fp32 on the card: prefill and 3 decode steps with
+    the kernels equal the plain versions (1e-3, as chip_smoke.py's parity
+    phases), every attention launched its kernel, and the loss agrees."""
+    from repro_torch import configs
+    from repro_torch.models.api import build_model
+
+    dev = _card()
+    cfg = configs.get_tiny(name).replace(capacity_factor=1.25, **MOE_MODELS[name])
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = build_model(cfg).init(generator=g, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=g, device=dev)
+    steps = [
+        torch.randint(0, cfg.vocab, (2, 1), generator=g, device=dev) for _ in range(3)
+    ]
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+    def run(c):
+        m = build_model(c)
+        cache, logits = m.prefill(params, {"tokens": tokens}, max_seq=16)
+        out = [logits]
+        for tok in steps:
+            cache, logits = m.decode_step(params, cache, tok)
+            out.append(logits)
+        return out, m.loss(params, batch)
+
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    got, got_loss = run(cfg)
+    torch.cuda.synchronize()
+    # prefill, then the loss's forward: one flash launch a layer each
+    assert flash_attention_cuda.launches - f0 == 2 * cfg.n_layers
+    assert decode_attention_cuda.launches - d0 == 3 * cfg.n_layers
+    want, want_loss = run(cfg.replace(attention_impl="xla"))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got_loss[0], want_loss[0], rtol=1e-3, atol=1e-3)
+    for k in want_loss[1]:
+        torch.testing.assert_close(
+            got_loss[1][k], want_loss[1][k], rtol=1e-3, atol=1e-3
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [384, 16])  # a prefill, a decode step's slots
+def test_cuda_moe_block_gives_the_same_bits_twice(tokens):
+    """moonshot's MoE block at full width (64 experts, top-6, d_ff 1,408)
+    in bf16: each token sums its k outputs in a loop, no atomic add, so
+    two runs give the same bits; the drops (capacity 1.25) too."""
+    from repro_torch import configs
+    from repro_torch.models.layers import moe_block, moe_specs
+    from repro_torch.models.spec import init_params
+
+    dev = _card()
+    cfg = configs.get("moonshot-v1-16b-a3b")
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = init_params(moe_specs(cfg), g, dev)
+    p = {k: v if k == "router" else v.bfloat16() for k, v in p.items()}
+    x = torch.randn(1, tokens, cfg.d_model, generator=g, device=dev).bfloat16()
+    outs = []
+    for _ in range(2):
+        stats = {
+            k: torch.zeros((), dtype=torch.int64, device=dev)
+            for k in ("kept", "assigned")
+        }
+        y, aux = moe_block(p, x, cfg, stats)
+        outs.append((y, aux, int(stats["kept"]), int(stats["assigned"])))
+    (y0, a0, k0, n0), (y1, a1, k1, n1) = outs
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    assert (k0, n0) == (k1, n1) and n0 == tokens * cfg.top_k
+    assert torch.isfinite(y0.float()).all()
 
 
 def _edge_lengths(S: int) -> list:

@@ -229,18 +229,6 @@ def test_params_from_reference_rejects_missing_extra_and_misshapen_leaves():
         params_from_reference(tcfg, bad, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "name,item",
-    [
-        ("moonshot-v1-16b-a3b", "item 10"),  # MoE
-        ("grok-1-314b", "item 10"),  # MoE
-    ],
-)
-def test_unported_families_raise_naming_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(configs.get_tiny(name))
-
-
 def test_configs_are_copies_of_the_reference():
     assert configs.ALL_ARCHS == jconfigs.ALL_ARCHS
     for name in configs.ALL_ARCHS:

@@ -15,8 +15,9 @@ The calls of each are counted per prefill and per decode step on the
 tiny configs and held against the formulas ``chip_smoke.py`` asserts on
 the card, which give 56/1 (qwen2-1.5b), 64/1 (rwkv6-3b), 38/13
 (zamba2-1.2b) and 20/1 (llama-3.2-vision at its served depth of 10
-layers) at full depth, as many norms a call as before; Whisper's
-LayerNorms launch no RMSNorm kernel.
+layers) at full depth, 32/1 (moonshot at 16 layers) and 4/1 (grok-1 at
+2), as many norms a call as before; Whisper's LayerNorms launch no
+RMSNorm kernel.
 """
 
 from __future__ import annotations
@@ -115,6 +116,8 @@ SERVED = (
     "zamba2-1.2b",
     "whisper-large-v3",
     "llama-3.2-vision-90b",
+    "moonshot-v1-16b-a3b",
+    "grok-1-314b",
 )
 
 
@@ -154,7 +157,8 @@ def test_full_depth_norm_plans():
     one eager add launch fewer per fused norm than before the fusion,
     and the same number of norms (57, 65, 51); the VLM at its served
     depth (10 layers) 20/1, its cross layers' norms fused too; Whisper
-    none (LayerNorm, plain PyTorch)."""
+    none (LayerNorm, plain PyTorch); the MoE paths at their served
+    depths (moonshot 16 layers, grok-1 2) 32/1 and 4/1."""
     smoke = _chip_smoke()
     want = {
         "qwen2-1.5b": (56, 1),
@@ -162,6 +166,8 @@ def test_full_depth_norm_plans():
         "zamba2-1.2b": (38, 13),
         "whisper-large-v3": (0, 0),
         "llama-3.2-vision-90b": (20, 1),
+        "moonshot-v1-16b-a3b": (32, 1),
+        "grok-1-314b": (4, 1),
     }
     assert sorted(want) == sorted(smoke.SERVED)
     for name, (fused, plain) in want.items():
