@@ -148,6 +148,25 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    drawn at the published initializer range (the bf16 difference is
    printed, not asserted), after the serving weights are released.
    rwkv6 is asserted on the serving phase's weights.
+15. the training path, which runs on the plain routes and launches no
+   kernel of the port (the kernels have no backward and refuse an input
+   that requires a gradient; the counts are set to 0 before 15b and
+   asserted 0 after): 15a the tiny qwen2 config in fp32 trained by
+   ``Trainer`` for 8 steps (batch 4 x 16, warm-up 2, two microbatches, a
+   checkpoint every 4) on the card and on the CPU, the losses within
+   ``1e-5`` relative (TF32 off), then a crash at step 6 and a restart
+   on the card whose 4 losses equal the uninterrupted run's; 15b the
+   slice's main path, ``repro_torch.launch.train.main`` on qwen2-1.5b at
+   full width and depth (1,777,481,216 parameters, fp32 masters, bf16
+   compute, the config's remat), 8 steps of 8 x 512 tokens: every loss
+   finite, step 1 (lr 0 under the warm-up) leaving every leaf
+   bit-identical, every leaf moved by step 8; the median step time of
+   steps 3-8, tokens/s, peak device memory, the step's bound (``6
+   N_matmul tokens`` FLOP at 989 TFLOP/s plus AdamW's 28 bytes a
+   parameter at 3.35 TB/s) and ``train_mfu``; 15c the gradient at full
+   width: qwen2-1.5b in fp32 at initializer_range 0.02, one batch of
+   8 x 512, the central difference of the loss along ``g / |g|`` with
+   ``eps |g| = 1e-2`` equal to ``|g|`` within ``1e-2`` relative.
 
 Prints one JSON line of per-kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -197,8 +216,9 @@ from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plan  # noqa: E402
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plan  # noqa: E402
 from repro_torch.models.api import build_model, frontend_inputs  # noqa: E402
 from repro_torch.models.layers import moe_block  # noqa: E402
-from repro_torch.models.spec import init_params, spec_map  # noqa: E402
+from repro_torch.models.spec import init_params, spec_map, tree_leaves  # noqa: E402
 from repro_torch.serving import EngineConfig, InferenceEngine, Request  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 #: the forwarder grid of benchmarks/jax_sweep.py: 72 configs x 14 seeds
 AXES = {
@@ -2697,6 +2717,309 @@ def phase_model_parity(dev, name: str, held: list) -> None:
     )
 
 
+# ----------------------------------------------------------------------
+# phase 15: the training path
+# ----------------------------------------------------------------------
+#: 15a: the tiny qwen2 trainer, on the card and on the CPU
+TRAIN_TINY_RUN = dict(
+    batch=4,
+    seq=16,
+    steps=8,
+    warmup=2,
+    microbatches=2,
+    checkpoint_every=4,
+    ring_size=16,
+    n_producers=1,
+)
+#: 15b: the slice's main path, through the launcher a user calls
+TRAIN_ARGS = [
+    "--arch",
+    MODEL,
+    "--full",
+    "--steps",
+    "8",
+    "--batch",
+    "8",
+    "--seq",
+    "512",
+    "--device",
+    "cuda",
+]
+#: the matmul weights of a decoder: 6 N_matmul FLOP per token trains them
+MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3", "out"})
+#: AdamW's bytes per parameter: read p, g, m, v and write p, m, v, fp32
+ADAMW_BYTES = 7 * 4
+
+
+def train_bound(cfg, tokens: int) -> dict:
+    """The train step's bound from the specs: ``6 N_matmul tokens`` FLOP at
+    the bf16 tensor rate, plus AdamW's bytes over HBM; ``N_matmul`` counts
+    the projections and the unembedding (the token table is a gather,
+    and attention's score products are left out)."""
+    specs = tree_leaves(build_model(cfg).param_specs())
+    n_all = sum(int(np.prod(s.shape)) for _, s in specs)
+    names = [(path.split("/")[-1], s) for path, s in specs]
+    n_mm = sum(
+        int(np.prod(s.shape))
+        for name, s in names
+        if name in MATMUL_LEAVES or (name == "tok" and cfg.tie_embeddings)
+    )
+    flop = 6 * n_mm * tokens
+    flop_ms = flop / BF16_OPS_PER_S * 1e3
+    bytes_ms = ADAMW_BYTES * n_all / HBM_BYTES_PER_S * 1e3
+    return dict(
+        n_params=n_all,
+        n_matmul=n_mm,
+        flop=flop,
+        flop_ms=flop_ms,
+        adamw_ms=bytes_ms,
+        bound_ms=flop_ms + bytes_ms,
+    )
+
+
+def _all_launches() -> dict:
+    return {k: w.launches for k, w in MODEL_KERNELS.items()}
+
+
+def _zero_launches() -> None:
+    for w in MODEL_KERNELS.values():
+        w.launches = 0
+
+
+def phase_train_tiny(dev, scratch: Path) -> None:
+    """15a: the tiny qwen2 config in fp32 on the plain routes, trained by
+    ``Trainer`` for 8 steps (warm-up 2, two microbatches, a checkpoint
+    every 4) on the card and on the CPU in this process: the losses agree
+    within 1e-5 relative (TF32 is off; the card's embedding backward
+    sums with atomics, so not bit for bit).  Then a crash at step 6 and a
+    restart on the card from the step-4 checkpoint: 4 losses, equal to the
+    uninterrupted run's within the same tolerance."""
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = configs.get_tiny(MODEL).replace(dtype="float32", attention_impl="xla")
+    runs = {}
+    for where in ("card", "cpu"):
+        tc = TrainerConfig(checkpoint_dir=str(scratch / where), **TRAIN_TINY_RUN)
+        on = dev if where == "card" else "cpu"
+        runs[where] = Trainer(cfg, tc, device=on).run()["losses"]
+    card, cpu = np.array(runs["card"]), np.array(runs["cpu"])
+    gap = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    if not (np.isfinite(card).all() and gap <= 1e-5):
+        raise AssertionError(f"phase 15a: card {card} vs CPU {cpu}: gap {gap}")
+    tc = TrainerConfig(checkpoint_dir=str(scratch / "crash"), **TRAIN_TINY_RUN)
+    try:
+        Trainer(cfg, tc, device=dev).run(crash_at=6)
+    except RuntimeError as e:
+        if "injected crash at step 6" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 15a: the injected crash did not happen")
+    resumed = np.array(Trainer(cfg, tc, device=dev).run()["losses"])
+    if len(resumed) != 4:
+        raise AssertionError(f"phase 15a: restart took {len(resumed)} steps, not 4")
+    rgap = float(np.max(np.abs(resumed - card[4:]) / np.abs(card[4:])))
+    if rgap > 1e-5:
+        raise AssertionError(f"phase 15a: resumed {resumed} vs {card[4:]}: {rgap}")
+    print(
+        f"phase 15a: {cfg.name} fp32 plain routes, Trainer 8 steps (batch 4 x 16, "
+        f"warm-up 2, 2 microbatches, checkpoint every 4): card losses "
+        f"{card.tolist()}; largest relative gap to the CPU run {gap:.3e} (<= 1e-5 "
+        f"asserted); crash at step 6, restart from step 4: 4 losses, largest "
+        f"relative gap to the uninterrupted card run {rgap:.3e} (<= 1e-5 asserted)"
+    )
+
+
+def phase_train_full(dev) -> dict:
+    """15b: the slice's main path: ``repro_torch.launch.train.main`` on
+    qwen2-1.5b at full width and depth (fp32 masters, bf16 compute, the
+    config's remat, the plain routes the launcher names), 8 steps of 8 x
+    512 tokens.  Every loss finite; step 1 (lr 0 under the warm-up)
+    leaves every leaf bit-identical (checked by running that step again
+    from the same seed-0 draw); by step 8 every leaf has moved; no kernel
+    of the port launched (the counts set to 0 before, read after).
+    Prints the step time (median of steps 3-8), tokens/s, peak device
+    memory, the bound and ``train_mfu``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import build_steps
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import TrainerConfig
+
+    cfg = configs.get(MODEL).replace(attention_impl="xla")
+    batch, seq = (
+        int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq")
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = train_main(TRAIN_ARGS)
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"phase 15b: the training path launched {launches}")
+    losses = out["losses"]
+    secs = [m["sec"] for m in out["metrics_log"]]
+    if len(losses) != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 15b: losses {losses}")
+    final = dict(tree_leaves(out["params"]))
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer's draw again: seed 0 on the CPU
+    model = build_model(cfg)
+    p0 = model.init(torch.Generator().manual_seed(0), device="cpu")
+    still = [k for k, p in tree_leaves(p0) if torch.equal(p.to(dev), final[k])]
+    if still:
+        raise AssertionError(f"phase 15b: leaves unmoved after 8 steps: {still}")
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step 1 again, from the same draw and the trainer's first batch
+    tc = TrainerConfig()
+    bundle = build_steps(cfg, lr_fn=cosine_schedule(tc.lr, tc.warmup, 8), device=dev)
+    params = tree_map(lambda t: t.to(dev), p0)
+    del p0
+    raw = SyntheticLMSource(cfg.vocab, batch, seq, tc.seed).batch_at(0)
+    opt = bundle.optimizer.init(params)
+    first = {k: raw[k] for k in ("tokens", "labels")}
+    split = _step_split(bundle, params, opt, first)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p1, _, m1 = bundle.train_step(params, opt, first)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_us, kernels = _device_us(prof)
+    del prof
+    changed = [
+        k
+        for (k, a), (_, b) in zip(tree_leaves(params), tree_leaves(p1))
+        if not torch.equal(a, b)
+    ]
+    lr1, loss1 = float(m1["lr"]), float(m1["loss"])
+    if changed or lr1 != 0.0:
+        raise AssertionError(f"phase 15b: step 1 at lr {lr1} moved {changed}")
+    if abs(loss1 - losses[0]) > 1e-3 * abs(losses[0]):
+        raise AssertionError(f"phase 15b: step 1 loss {loss1} vs {losses[0]}")
+    del params, opt, p1, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    b = train_bound(cfg, tokens)
+    step_s = float(np.median(secs[2:]))
+    mfu = b["flop"] / step_s / BF16_OPS_PER_S
+    args = " ".join(TRAIN_ARGS)
+    n_all, n_mm, flop = b["n_params"], b["n_matmul"], b["flop"]
+    bound, flop_ms, adamw_ms = b["bound_ms"], b["flop_ms"], b["adamw_ms"]
+    print(
+        f"phase 15b: launch.train.main({args}): {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {n_all:,} parameters "
+        f"({n_mm:,} in matmuls), fp32 masters, bf16 compute, remat "
+        f"{cfg.remat} ({cfg.remat_policy}), plain routes; {wall:.2f} s wall with "
+        f"the CPU draw"
+    )
+    print(f"phase 15b: losses {losses}; step seconds {secs}")
+    print(
+        f"phase 15b: step 1 (lr 0) left every leaf bit-identical, every leaf "
+        f"moved by step 8, no kernel of the port launched ({launches})"
+    )
+    top = ", ".join(f"{k[2][:48]} x{k[1]} {k[0] / 1e3:.2f} ms" for k in kernels[:8])
+    grad_ms, update_ms = split["grad_ms"], split["update_ms"]
+    idle = f"{1 - dev_us / 1e3 / prof_ms:.4f}" if dev_us > 0 else "not measured"
+    print(
+        f"phase 15b: step 1 again, synchronised: forward + backward "
+        f"{grad_ms:.3f} ms, AdamW update + apply {update_ms:.3f} ms; under "
+        f"torch.profiler: host {prof_ms:.3f} ms, kernels {dev_us / 1e3:.3f} ms, "
+        f"{sum(k[1] for k in kernels)} device launches, idle share {idle}; top "
+        f"kernels: {top}"
+    )
+    print(
+        f"phase 15b: median step (steps 3-8) {step_s * 1e3:.3f} ms, "
+        f"{tokens / step_s:.1f} tokens/s, peak device memory {peak / 1e9:.2f} GB; "
+        f"bound {bound:.3f} ms (6 N_matmul tokens {flop:.4e} FLOP "
+        f"at 989 TFLOP/s: {flop_ms:.3f} ms + AdamW {ADAMW_BYTES} B/param "
+        f"at 3.35 TB/s: {adamw_ms:.3f} ms), bound/step "
+        f"{bound / (step_s * 1e3):.4f}, train_mfu {mfu:.4f}"
+    )
+    return dict(step_ms=step_s * 1e3, mfu=mfu, peak_gb=peak / 1e9, **b)
+
+
+def _step_split(bundle, params, opt, batch) -> dict:
+    """The train step's two halves, each synchronised on the host clock:
+    ``value_and_grad`` of the loss, then AdamW's update and
+    ``apply_updates`` (the lr of step 1)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import apply_updates
+
+    on = bundle.device
+    dev_batch = {k: torch.as_tensor(v, device=on) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = value_and_grad(bundle.model, params, dev_batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr = torch.zeros((), device=bundle.device)
+    updates, new_opt = bundle.optimizer.update(grads, opt, params, lr)
+    del grads
+    new_params = apply_updates(params, updates)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del updates, new_opt, new_params
+    return dict(grad_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3)
+
+
+def phase_train_grad(dev) -> None:
+    """15c: the gradient at full width: qwen2-1.5b in fp32 on the plain
+    routes, every normal-initialised weight drawn at the published
+    initializer_range (the reference initialiser makes the stack chaotic,
+    where a finite difference means nothing).  One batch of 8 x 512: g by
+    backward, then the central difference of the loss along u = g / |g|
+    with eps |g| = 1e-2; it equals |g| within 1e-2 relative."""
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import global_norm
+
+    cfg = configs.get(MODEL).replace(dtype="float32", attention_impl="xla")
+    model = build_model(cfg)
+    specs = spec_map(
+        lambda s: dataclasses.replace(s, scale=INIT_RANGE) if s.init == "normal" else s,
+        model.param_specs(),
+    )
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+    raw = SyntheticLMSource(cfg.vocab, 8, 512, SEED + 1).batch_at(0)
+    batch = {k: torch.from_numpy(raw[k]).to(dev) for k in ("tokens", "labels")}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _, g = value_and_grad(model, params, batch)
+    gn = float(global_norm(g))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    eps = 1e-2 / gn
+
+    def loss_at(sign: float) -> float:
+        with torch.no_grad():
+            moved = tree_map(lambda p, d: p + (sign * eps / gn) * d, params, g)
+            return float(model.loss(moved, batch)[0])
+
+    lp, lm = loss_at(1.0), loss_at(-1.0)
+    deriv = (lp - lm) / (2 * eps)
+    rel = abs(deriv - gn) / gn
+    if not rel <= 1e-2:
+        raise AssertionError(f"phase 15c: directional derivative {deriv} vs |g| {gn}")
+    print(
+        f"phase 15c: {cfg.name} fp32 plain routes at initializer_range {INIT_RANGE}, "
+        f"8 x 512 tokens: loss {float(loss):.6f}, |g| {gn:.6e} (backward "
+        f"{grad_s:.2f} s), central difference along g/|g| with eps {eps:.4e}: "
+        f"L+ {lp:.7f}, L- {lm:.7f}, derivative {deriv:.6e}, relative gap "
+        f"{rel:.3e} (<= 1e-2 asserted); peak device memory {_peak_gb()}"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2757,6 +3080,19 @@ def main() -> int:
         phase_model_parity(dev, name, held)
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 15: the training path (no kernel of the port runs on it)
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as scratch:
+        phase_train_tiny(dev, Path(scratch))
+    phase_train_full(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grad(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # a kernel's launches through all its wrappers: the RMSNorm kernel as
     # the plain and the fused norm, the batched done-prefix kernel on
     # device tensors and on the engine's pinned ring state

@@ -23,6 +23,29 @@ Layout:
                        params_from_reference, build_model
   serving/             EngineConfig / InferenceEngine behind COREC or
                        RSS ingestion (request, scheduler: own copies)
+  tree.py              pytree helpers in jax's leaf order and paths
+  optim/               AdamW and the cosine / WSD schedules
+  launch/              build_steps (train, prefill, serve steps on one
+                       device) and the training launcher
+  train/               Trainer: data ring, step, checkpoints, restart
+  checkpoint/          atomic, hashed checkpoints in the reference's layout
+  data/, runtime/      the data pipeline and the straggler detector
+                       (own copies)
 """
 
-__all__ = ["compat", "config", "configs", "core", "kernels", "models", "serving"]
+__all__ = [
+    "checkpoint",
+    "compat",
+    "config",
+    "configs",
+    "core",
+    "data",
+    "kernels",
+    "launch",
+    "models",
+    "optim",
+    "runtime",
+    "serving",
+    "train",
+    "tree",
+]

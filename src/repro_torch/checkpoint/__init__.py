@@ -1,0 +1,13 @@
+from .ckpt import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = [
+    "AsyncCheckpointer",
+    "latest_step",
+    "restore_checkpoint",
+    "save_checkpoint",
+]

@@ -14,6 +14,11 @@ stderr.  Nothing is built when this module is imported.
 :func:`count_launch` adds one to a wrapper's ``launches`` under a lock:
 the serving engine launches kernels from its prefill worker threads
 and its decode thread at once, and ``+=`` on an attribute is not atomic.
+
+:func:`refuse_grad` is the check every wrapper with floating inputs makes
+first: a kernel writes its output through a raw pointer, so the output
+carries no ``grad_fn``, and a launch under grad mode on an input that
+requires a gradient would cut the autograd graph without an error.
 """
 
 from __future__ import annotations
@@ -26,7 +31,17 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log", "count_launch"]
+import torch
+
+__all__ = [
+    "SOURCES",
+    "BUILD_DIR",
+    "build",
+    "load",
+    "build_log",
+    "count_launch",
+    "refuse_grad",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: device helpers that every source including them shares
@@ -131,3 +146,21 @@ def count_launch(wrapper) -> None:
     """One more launch of ``wrapper``'s kernel (thread-safe)."""
     with _count_lock:
         wrapper.launches += 1
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and a floating tensor among ``tensors``
+    requires a gradient: the kernel has no backward (see the module
+    docstring).  Nothing switches to the plain version on its own."""
+    if not torch.is_grad_enabled():
+        return
+    if any(
+        isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+        for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: a CUDA kernel has no backward, and an input requires a "
+            "gradient; train on the plain versions (attention_impl='xla' in "
+            "the ArchConfig, impl='plain' in kernels.ops), or call under "
+            "torch.no_grad()"
+        )

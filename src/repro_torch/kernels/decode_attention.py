@@ -125,6 +125,7 @@ def decode_attention_cuda(
 ) -> torch.Tensor:  # [B, H, D], q's dtype
     """Launch the kernels on the current stream; raises on any input they
     do not take and on a launch the CUDA runtime refuses."""
+    _build.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     ts = (q, k_cache, v_cache, lengths)
     dt = q.dtype
     if dt not in DTYPE_CODES or k_cache.dtype != dt or v_cache.dtype != dt:

@@ -95,6 +95,7 @@ def flash_attention_cuda(
 ) -> torch.Tensor:  # [B, Sq, H, D], q's dtype
     """Launch the kernel on the current stream; raises on any input it
     does not take and on a launch the driver refuses."""
+    _build.refuse_grad("flash_attention_cuda", q, k, v)
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention_cuda: q, k, v must all be fp32 or bf16")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:

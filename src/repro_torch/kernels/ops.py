@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import ref
+from . import _build, ref
 from .decode_attention import decode_attention_cuda
 from .doneprefix import (
     claim_check_cuda,
@@ -53,7 +53,14 @@ __all__ = [
 IMPLS = ("auto", "cuda", "plain")
 
 
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+def _use_kernel(impl: str, t: torch.Tensor, *inputs) -> bool:
+    """Whether the op runs its kernel on ``t`` (the tensor that decides the
+    device).  Where a kernel would run, or is asked for by name, and grad
+    mode is on, ``t`` and the op's other ``inputs`` go through
+    ``_build.refuse_grad`` first, before the device check: a kernel has
+    no backward, and nothing switches to the plain version on its own.
+    Training asks for the plain versions by name (``attention_impl='xla'``),
+    as the reference trains on its XLA routes."""
     if impl == "pallas":
         raise ValueError(
             "impl='pallas' is the JAX package's TPU route; the port has the "
@@ -61,9 +68,12 @@ def _use_kernel(impl: str, t: torch.Tensor) -> bool:
         )
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    kernel = impl == "cuda" or (impl == "auto" and t.is_cuda)
+    if kernel:
+        _build.refuse_grad(f"impl={impl!r}", t, *inputs)
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs a CUDA tensor")
-    return impl != "plain" and t.is_cuda
+    return kernel
 
 
 def done_prefix_packed(
@@ -124,7 +134,7 @@ def attention(
     kernel reads the model layout as it lies, so the reference's fold to
     ``[B*H, S, D]`` (query row ``bh`` reads KV row ``bh // G``) happens
     in its indexing, not in a copy."""
-    if _use_kernel(impl, q):
+    if _use_kernel(impl, q, k, v):
         return flash_attention_cuda(
             q.contiguous(),
             k.contiguous(),
@@ -147,7 +157,7 @@ def decode_attention(
     """One-token attention over a cache (``repro.kernels.ops.decode_attention``).
     The kernel groups the G query heads of a KV head as the reference's
     ``q.reshape(B, Hkv, G, D)`` does, reading the cache in place."""
-    if _use_kernel(impl, q):
+    if _use_kernel(impl, q, k_cache, v_cache):
         return decode_attention_cuda(
             q.contiguous(),
             k_cache.contiguous(),
@@ -166,7 +176,7 @@ def rmsnorm(
 ) -> torch.Tensor:
     """RMSNorm over the last axis (``repro.kernels.ops.rmsnorm``); the
     kernel sees ``x`` flattened to ``[rows, d]``."""
-    if _use_kernel(impl, x):
+    if _use_kernel(impl, x, weight):
         y = rmsnorm_cuda(
             x.reshape(-1, x.shape[-1]).contiguous(), weight.contiguous(), eps=eps
         )
@@ -186,7 +196,7 @@ def add_rmsnorm(
     launch (``add_rmsnorm_cuda``), ``s`` bit for bit the eager add's; the
     plain version is the two steps (``ref.add_rmsnorm_ref``).  ``s`` is a
     new tensor on both routes."""
-    if _use_kernel(impl, x):
+    if _use_kernel(impl, x, delta, weight):
         d = x.shape[-1]
         s, y = add_rmsnorm_cuda(
             x.reshape(-1, d).contiguous(),
@@ -226,7 +236,7 @@ def rwkv6(
     B, T, H, N = r.shape
     if state is None:
         state = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
-    if _use_kernel(impl, r):
+    if _use_kernel(impl, r, k, v, w, u, state):
         return rwkv6_cuda(
             r.contiguous(),
             k.contiguous(),
@@ -288,7 +298,7 @@ def ssd(
     G, N = B.shape[2], B.shape[3]
     if state is None:
         state = torch.zeros(Bb, H, P, N, dtype=torch.float32, device=x.device)
-    if _use_kernel(impl, x):
+    if _use_kernel(impl, x, dt, A, B, C, D, state):
         y, s = ssd_cuda(
             x,
             dt.float().contiguous(),

@@ -120,6 +120,7 @@ def rmsnorm_cuda(
 ) -> torch.Tensor:  # [rows, d], x's dtype
     """Launch the kernel on the current stream; raises on any input it
     does not take and on a launch the driver refuses."""
+    _build.refuse_grad("rmsnorm_cuda", x, weight)
     _check("rmsnorm_cuda", x, weight)
     y = torch.empty_like(x)
     _launch("rmsnorm", x, None, weight, None, y, eps)
@@ -136,6 +137,7 @@ def add_rmsnorm_cuda(
     """Launch the fused kernel on the current stream; raises on any input
     it does not take and on a launch the driver refuses.  ``s`` is a new
     tensor: ``x`` is left as it was."""
+    _build.refuse_grad("add_rmsnorm_cuda", x, delta, weight)
     _check("add_rmsnorm_cuda", x, weight)
     if delta.device != x.device or delta.dtype != x.dtype:
         raise TypeError(

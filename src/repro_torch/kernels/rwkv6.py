@@ -114,6 +114,7 @@ def rwkv6_cuda(
 ):  # -> (o [B, T, H, N] in r's dtype, final state [B, H, N, N] fp32)
     """Launch the kernel on the current stream; raises on any input it
     does not take and on a launch the CUDA runtime refuses."""
+    _build.refuse_grad("rwkv6_cuda", r, k, v, w, u, state)
     ts = (r, k, v, w, u, state)
     if not all(t.is_cuda and t.device == r.device for t in ts):
         raise ValueError("rwkv6_cuda: tensors must share a CUDA device")

@@ -153,6 +153,7 @@ def ssd_cuda(
 ):  # -> (y [B, T, H, P] in x's dtype, no D-skip; final state fp32)
     """Launch the kernel on the current stream; raises on any input it
     does not take and on a launch the CUDA runtime refuses."""
+    _build.refuse_grad("ssd_cuda", x, dt, A, Bm, Cm, state)
     ts = (x, dt, A, Bm, Cm, state)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("ssd_cuda: tensors must share a CUDA device")

@@ -1,0 +1,138 @@
+"""The train, prefill and serve steps on one device: the port of
+``repro.launch.steps``.
+
+``build_steps`` wires a model and the optimizer into three callables:
+
+* ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+  as the reference's ``steps.py:94-130``: the loss and its gradient with
+  respect to every parameter leaf (``value_and_grad`` of ``model.loss``);
+  with ``microbatches > 1`` the batch split on its leading axis, the
+  gradients summed in fp32 over the microbatches and divided by their
+  count, the loss averaged and the metrics replaced by ``{"ce": loss}``;
+  then the learning rate from ``lr_fn`` at the optimizer's step count
+  *before* this update (so step 1 under a warm-up has lr 0),
+  ``optimizer.update`` and ``apply_updates``.  The metrics gain ``loss``
+  and ``lr``.  Functional: new parameter and state trees come back, the
+  caller's are left as they were.
+* ``prefill_step`` and ``serve_step``: the model's ``prefill`` and
+  ``decode_step``, under inference mode.
+
+Training runs the plain routes: every kernel refuses an input that
+requires a gradient (``kernels._build.refuse_grad``), so a configuration
+must name them (``attention_impl="xla"``).  The reference's shardings
+(``steps.py:71-91``) come from its ``sharding.py``, which the port has
+not ported (ROADMAP A9): those fields of the bundle stay ``None``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..compat import resolve_device
+from ..config import ArchConfig
+from ..models.api import build_model
+from ..optim import AdamW, apply_updates
+from ..tree import tree_leaves, tree_map, tree_unflatten
+
+__all__ = ["StepBundle", "build_steps", "value_and_grad"]
+
+
+@dataclass
+class StepBundle:
+    model: Any
+    optimizer: AdamW
+    train_step: Callable
+    prefill_step: Callable
+    serve_step: Callable
+    device: torch.device
+    # the reference's sharding fields, None on one device (ROADMAP A9)
+    rules: Any = None
+    serve_rules: Any = None
+    param_shardings: Any = None
+    serve_param_shardings: Any = None
+    opt_shardings: Any = None
+    batch_sharding: Optional[Callable] = None
+    cache_shardings: Optional[Callable] = None
+
+
+def value_and_grad(model, params, batch):
+    """(loss, metrics, grads) of ``model.loss(params, batch)``: the grads a
+    tree of ``params``' structure, zeros for a leaf the loss does not
+    read (as ``jax.grad`` gives), the loss and metrics detached."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = model.loss(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True
+        )
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(params, grads)
+
+
+def build_steps(
+    cfg: ArchConfig,
+    lr_fn: Optional[Callable] = None,
+    optimizer: Optional[AdamW] = None,
+    microbatches: int = 1,
+    device=None,
+) -> StepBundle:
+    """The steps of ``cfg`` on ``device`` (default: the card).  ``lr_fn``
+    maps the 0-d int32 step count to a 0-d fp32 learning rate (default a
+    constant 3e-4); ``optimizer`` defaults to ``AdamW()``."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    optimizer = optimizer or AdamW()
+    if lr_fn is None:
+
+        def lr_fn(step):
+            return torch.tensor(3e-4, dtype=torch.float32, device=dev)
+
+    def to_device(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def train_step(params, opt_state, batch):
+        batch = to_device(batch)
+        if microbatches > 1:
+            mb = {
+                k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+                for k, v in batch.items()
+            }
+            grads = tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                params,
+            )
+            loss_sum = 0.0
+            for i in range(microbatches):
+                part = {k: v[i] for k, v in mb.items()}
+                loss, _, g = value_and_grad(model, params, part)
+                tree_map(lambda a, b: a.add_(b.float()), grads, g)
+                loss_sum = loss_sum + loss
+                del g
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = loss_sum / microbatches
+            metrics = {"ce": loss}
+        else:
+            loss, metrics, grads = value_and_grad(model, params, batch)
+        lr = lr_fn(opt_state.step)
+        updates, new_opt = optimizer.update(grads, opt_state, params, lr)
+        del grads
+        new_params = apply_updates(params, updates)
+        return new_params, new_opt, dict(metrics, loss=loss, lr=lr)
+
+    def prefill_step(params, batch, max_seq: Optional[int] = None):
+        return model.prefill(params, to_device(batch), max_seq=max_seq)
+
+    def serve_step(params, cache, tokens):
+        return model.decode_step(params, cache, tokens)
+
+    return StepBundle(
+        model=model,
+        optimizer=optimizer,
+        train_step=train_step,
+        prefill_step=prefill_step,
+        serve_step=serve_step,
+        device=dev,
+    )

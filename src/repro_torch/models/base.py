@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
 from ..config import ArchConfig
@@ -72,6 +73,25 @@ class LMBase(nn.Module):
             return tree if keep or not tree.is_floating_point() else tree.to(dt)
 
         return go(params)
+
+    def _remat(self, fn, *args):
+        """One layer ``fn(*args)``, honouring ``cfg.remat`` as the
+        reference's ``_remat`` does (``transformer.py:54-60``): under grad
+        mode with ``remat`` on and policy ``"full"`` the layer runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward, not kept); ``"none"``, ``remat`` off, or no grad mode
+        runs it plainly.  ``"dots"`` (jax's
+        ``checkpoint_dots_with_no_batch_dims``) is not ported."""
+        cfg = self.cfg
+        if not (torch.is_grad_enabled() and cfg.remat) or cfg.remat_policy == "none":
+            return fn(*args)
+        if cfg.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported (ROADMAP A9); use 'full' or 'none'"
+            )
+        if cfg.remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        return checkpoint(fn, *args, use_reentrant=False)
 
     def _label_logprobs(self, params, x, labels):
         """(logsumexp, label logit) of the fp32 logits of the hidden

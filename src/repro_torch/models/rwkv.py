@@ -194,14 +194,23 @@ class Rwkv6LM(LMBase):
         z_last = torch.zeros(B, 1, cfg.d_model, dtype=dt, device=x.device)
         states, delta = [], None  # delta: a block's output, added by the next norm
         for lp in _unstack(params["layers"], cfg.n_layers):
-            x, h = apply_add_norm(lp["tm"]["ln"], x, delta, cfg)
-            a, wkv = self._time_mix(lp["tm"], h, self._shift(h, z_last), z_state, dt)
-            x, h2 = apply_add_norm(lp["cm"]["ln"], x, a, cfg)
-            delta = self._channel_mix(lp["cm"], h2, self._shift(h2, z_last), dt)
-            states.append((wkv, h[:, -1:], h2[:, -1:]))
+            x, delta, state = self._remat(self._layer, lp, x, delta, z_state, z_last)
+            states.append(state)
         return apply_add_norm(params["final_norm"], x, delta, cfg)[1], states
 
-    @torch.inference_mode()
+    def _layer(self, lp, x, delta, z_state, z_last):
+        """One layer on the residual ``x`` plus the previous layer's
+        output ``delta``: -> (the residual, this layer's channel-mix
+        output, not yet added, (wkv state, last ln1 output, last ln2
+        output))."""
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        x, h = apply_add_norm(lp["tm"]["ln"], x, delta, cfg)
+        a, wkv = self._time_mix(lp["tm"], h, self._shift(h, z_last), z_state, dt)
+        x, h2 = apply_add_norm(lp["cm"]["ln"], x, a, cfg)
+        delta = self._channel_mix(lp["cm"], h2, self._shift(h2, z_last), dt)
+        return x, delta, (wkv, h[:, -1:], h2[:, -1:])
+
     def forward(self, params, tokens, collect_state: bool = False):
         """tokens [B, T] -> (hidden [B, T, d], (wkv, tm_last, cm_last)
         stacked over layers, or None)."""
@@ -210,10 +219,10 @@ class Rwkv6LM(LMBase):
             return x, None
         return x, tuple(torch.stack(s) for s in zip(*states))
 
-    @torch.inference_mode()
     def loss(self, params, batch):
-        """The mean cross-entropy of ``batch["labels"]``, forward only
-        (the reference's ``rwkv.py:195-201``): (ce, {"ce": ce})."""
+        """The mean cross-entropy of ``batch["labels"]`` (the reference's
+        ``rwkv.py:195-201``): (ce, {"ce": ce}); each layer under
+        ``_remat``, as the reference's ``scan_stack`` runs it."""
         x, _ = self.forward(params, batch["tokens"])
         return self._mean_ce(params, x, batch["labels"])
 

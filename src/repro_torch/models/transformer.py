@@ -18,9 +18,13 @@ API (the reference's, minus ``rules``):
   forward(params, tokens, image_embeds, collect_kv) -> (hidden, caches, aux)
   loss(params, batch) -> (total, {"ce", "aux", "zloss"}), the batch
       carrying ``tokens``, ``labels`` and optionally ``loss_mask`` (and
-      the VLM's ``image_embeds``); forward only, under inference mode
-  prefill(params, batch, max_seq) -> (cache, last_logits), the VLM's
-      batch carrying ``image_embeds`` [B, n_image_tokens, d]
+      the VLM's ``image_embeds``); ``forward`` and ``loss`` run under
+      grad mode where the caller has it on (training: the plain routes,
+      each self layer under ``_remat``, as the reference's ``scan_stack``
+      wraps them; the cross layers plainly, as its group scan does)
+  prefill(params, batch, max_seq) -> (cache, last_logits) under
+      inference mode, the VLM's batch carrying ``image_embeds``
+      [B, n_image_tokens, d]
   decode_step(params, cache, tokens) -> (cache, logits)
   cache_specs(batch_size, seq_len) / init_cache(batch_size, seq_len, device)
 
@@ -209,7 +213,7 @@ class DecoderLM(LMBase):
         delta, auxes = None, []
         for kind, lp, idx in self._stack_walk(params):
             if kind == "self":
-                x, delta, kv, aux = self._self_layer(lp, x, delta, tables)
+                x, delta, kv, aux = self._remat(self._self_layer, lp, x, delta, tables)
                 if aux is not None:
                     auxes.append(aux)
                 if kv_out is not None:
@@ -225,7 +229,6 @@ class DecoderLM(LMBase):
             return x, torch.zeros((), device=x.device)
         return x, torch.stack(auxes).sum()
 
-    @torch.inference_mode()
     def forward(self, params, tokens, image_embeds=None, collect_kv: bool = False):
         """tokens [B, S] (and the VLM's image_embeds [B, n_image_tokens,
         d]) -> (hidden [B, S, d], caches-or-None, aux_loss)."""
@@ -236,10 +239,9 @@ class DecoderLM(LMBase):
             del caches["lengths"]
         return x, caches, aux
 
-    @torch.inference_mode()
     def loss(self, params, batch):
-        """The training loss, forward only (the reference's
-        ``transformer.py:221-234``): masked mean cross-entropy over the
+        """The training loss (the reference's ``transformer.py:221-234``),
+        differentiable on the plain routes: masked mean cross-entropy over the
         real vocabulary, plus ``1e-4`` times the masked mean of
         logsumexp squared (z-loss) and ``0.01`` times the MoE aux loss.
         ``loss_mask`` defaults to ones.  Returns (total, {"ce", "aux",

@@ -20,7 +20,8 @@ API as ``transformer.DecoderLM``'s, with the audio:
       -> (hidden, (k, v, cross_k, cross_v) stacked per layer, or None)
   loss(params, batch) -> (ce, {"ce": ce}), the mean cross-entropy of
       ``labels``, the batch carrying ``tokens`` and ``audio_embeds``;
-      forward only, under inference mode
+      differentiable on the plain routes, each encoder and decoder layer
+      under ``_remat`` as the reference's ``scan_stack`` runs them
   prefill(params, batch, max_seq), the batch carrying ``audio_embeds``
   decode_step(params, cache, tokens)
 
@@ -110,20 +111,37 @@ class EncDecLM(LMBase):
     # ------------------------------------------------------------------
     # encoder + decoder (prefill)
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def encode(self, params, audio_embeds: torch.Tensor) -> torch.Tensor:
         """audio_embeds [B, enc_len, d] -> the encoder output, in the
         compute dtype, with the weights as given (``forward`` rounds them
-        first, as the reference's does)."""
+        first, as the reference's does); each layer under ``_remat``."""
         cfg = self.cfg
         dt = cdtype(cfg)
         x = audio_embeds.to(dt) + params["enc_pos"].to(dt)
         for lp in _unstack(params["enc_layers"], cfg.enc_layers):
-            h = apply_norm(lp["ln1"], x, cfg)
-            a, _ = attention_block(lp["attn"], h, cfg, None, causal=False)
-            x = x + a
-            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+            x = self._remat(self._enc_layer, lp, x)
         return apply_norm(params["enc_norm"], x, cfg)
+
+    def _enc_layer(self, lp, x):
+        cfg = self.cfg
+        h = apply_norm(lp["ln1"], x, cfg)
+        a, _ = attention_block(lp["attn"], h, cfg, None, causal=False)
+        x = x + a
+        return x + mlp_block(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+
+    def _dec_layer(self, lp, x, enc, tables):
+        """One decoder layer -> (x, self K/V, cross K/V)."""
+        cfg = self.cfg
+        h = apply_norm(lp["ln1"], x, cfg)
+        a, kv = attention_block(lp["self_attn"], h, cfg, tables)
+        x = x + a
+        h2 = apply_norm(lp["ln2"], x, cfg)
+        c, ckv = attention_block(
+            lp["cross_attn"], h2, cfg, None, causal=False, memory=enc
+        )
+        x = x + c
+        x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
+        return x, kv, ckv
 
     def _forward(self, params, tokens, audio_embeds, kv_out):
         """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
@@ -136,15 +154,7 @@ class EncDecLM(LMBase):
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
-            h = apply_norm(lp["ln1"], x, cfg)
-            a, kv = attention_block(lp["self_attn"], h, cfg, tables)
-            x = x + a
-            h2 = apply_norm(lp["ln2"], x, cfg)
-            c, ckv = attention_block(
-                lp["cross_attn"], h2, cfg, None, causal=False, memory=enc
-            )
-            x = x + c
-            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
+            x, kv, ckv = self._remat(self._dec_layer, lp, x, enc, tables)
             if kv_out is not None:
                 kv_out["k"][i, :, :S] = kv["k"]
                 kv_out["v"][i, :, :S] = kv["v"]
@@ -152,7 +162,6 @@ class EncDecLM(LMBase):
                 kv_out["cross_v"][i] = ckv["v"]
         return apply_norm(params["final_norm"], x, cfg)
 
-    @torch.inference_mode()
     def forward(self, params, tokens, audio_embeds, collect_kv: bool = False):
         """tokens [B, S], audio_embeds [B, enc_len, d] -> (hidden [B, S, d],
         (k, v, cross_k, cross_v) stacked over the layers, or None)."""
@@ -163,10 +172,9 @@ class EncDecLM(LMBase):
             return x, None
         return x, tuple(caches[k] for k in ("k", "v", "cross_k", "cross_v"))
 
-    @torch.inference_mode()
     def loss(self, params, batch):
-        """The mean cross-entropy of ``batch["labels"]``, forward only
-        (the reference's ``whisper.py:136-142``): (ce, {"ce": ce})."""
+        """The mean cross-entropy of ``batch["labels"]`` (the reference's
+        ``whisper.py:136-142``): (ce, {"ce": ce})."""
         x, _ = self.forward(params, batch["tokens"], batch["audio_embeds"])
         return self._mean_ce(params, x, batch["labels"])
 

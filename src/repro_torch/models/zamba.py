@@ -269,7 +269,7 @@ class ZambaLM(LMBase):
         delta = None  # a block's output, added by the next norm
         for g, (gp, lora) in enumerate(zip(groups, loras)):
             for j, lp in enumerate(_unstack(gp, self.period)):
-                x, delta, ssm, conv = self._mamba_block(lp, x, delta, dt)
+                x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt)
                 if cache is not None:
                     cache["ssm_g"][g, j] = ssm
                     cache["conv_g"][g, j] = conv
@@ -282,13 +282,12 @@ class ZambaLM(LMBase):
                 cache["attn_k"][g, :, :S] = k
                 cache["attn_v"][g, :, :S] = v
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
-            x, delta, ssm, conv = self._mamba_block(lp, x, delta, dt)
+            x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt)
             if cache is not None:
                 cache["ssm_x"][j] = ssm
                 cache["conv_x"][j] = conv
         return apply_add_norm(params["final_norm"], x, delta, cfg)[1]
 
-    @torch.inference_mode()
     def forward(self, params, tokens, collect_state: bool = False):
         """tokens [B, S] -> (hidden [B, S, d], (ssm, conv, k, v) of the
         groups, (ssm, conv) of the extra layers), the states None unless
@@ -302,10 +301,11 @@ class ZambaLM(LMBase):
         ys_x = (cache["ssm_x"], cache["conv_x"]) if self.n_extra else None
         return x, ys, ys_x
 
-    @torch.inference_mode()
     def loss(self, params, batch):
-        """The mean cross-entropy of ``batch["labels"]``, forward only
-        (the reference's ``zamba.py:311-317``): (ce, {"ce": ce})."""
+        """The mean cross-entropy of ``batch["labels"]`` (the reference's
+        ``zamba.py:311-317``): (ce, {"ce": ce}); each Mamba block under
+        ``_remat`` and the shared block plainly, as the reference's
+        scans run them."""
         x, _, _ = self.forward(params, batch["tokens"])
         return self._mean_ce(params, x, batch["labels"])
 

@@ -1083,3 +1083,121 @@ def test_cuda_scans_from_two_threads_equal_plain():
     for t in threads:
         t.join()
     assert not bad, f"calls {sorted(set(bad))} differed under concurrency"
+
+
+# ----------------------------------------------------------------------
+# training: the grad guard and one train step
+# ----------------------------------------------------------------------
+def _grad_calls(dev):
+    """Each float kernel as (wrapper, a call on inputs of which the first
+    requires a gradient)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    q = rn(1, 16, 2, 64).requires_grad_(True)
+    kv = rn(1, 16, 1, 64)
+    lengths = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    r = rn(1, 64, 2, 64).requires_grad_(True)
+    w = torch.sigmoid(rn(1, 64, 2, 64))
+    st = torch.zeros(1, 2, 64, 64, device=dev)
+    x = rn(1, 64, 2, 64).requires_grad_(True)
+    dt, A = torch.rand(1, 64, 2, generator=g, device=dev), -torch.rand(2, device=dev)
+    Bm = rn(1, 64, 1, 64)
+    ones = torch.ones(64, device=dev)
+    return [
+        (flash_attention_cuda, lambda: flash_attention_cuda(q, kv, kv)),
+        (
+            decode_attention_cuda,
+            lambda: decode_attention_cuda(q[:, 0].contiguous(), kv, kv, lengths),
+        ),
+        (rmsnorm_cuda, lambda: rmsnorm_cuda(q.reshape(-1, 64), ones)),
+        (
+            add_rmsnorm_cuda,
+            lambda: add_rmsnorm_cuda(
+                kv.reshape(-1, 64), q[:, :, 0].reshape(-1, 64).contiguous(), ones
+            ),
+        ),
+        (rwkv6_cuda, lambda: rwkv6_cuda(r, r.detach(), r.detach(), w, w[0, 0], st)),
+        (ssd_cuda, lambda: ssd_cuda(x, dt, A, Bm, Bm, st)),
+    ]
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_inputs_that_require_grad():
+    """Under grad mode a wrapper raises before it launches (its output
+    would carry no ``grad_fn``), and ``ops``' ``"auto"`` on a CUDA tensor
+    that requires a gradient raises too: no quiet switch to the plain
+    version."""
+    dev = _card()
+    for wrapper, call in _grad_calls(dev):
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        assert wrapper.launches == before, wrapper.__name__
+        with torch.no_grad():
+            call()
+        assert wrapper.launches == before + 1, wrapper.__name__
+    q = torch.randn(1, 8, 2, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        ops.attention(q, q, q)
+    out = ops.attention(q, q, q, impl="plain")
+    assert out.grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_equals_cpu():
+    """One tiny fp32 train step on the plain routes (TF32 off), on the card
+    and on the CPU from the same parameters and batch, every attention's
+    wq/wk/wv drawn at fan-in d (as ``tests/test_torch_grad.py`` does: at
+    the reference initialiser's fan-in of H the tiny stack's attention is
+    all but a hard max, which amplifies rounding).  The loss agrees
+    within ``1e-5`` relative and every gradient leaf within ``2e-5`` of
+    its magnitude (the card's embedding backward sums with atomics, its
+    GEMMs in another order).  After the AdamW step the moments agree
+    within ``2e-5`` of their magnitude, and each parameter within
+    ``0.1 lr``: Adam's first step is ``lr g / (|g| + eps)``, so where a
+    gradient element is within a few ``eps`` of zero its step moves with
+    the gradient's last bits."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_steps, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = _card()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = configs.get_tiny("qwen2-1.5b").replace(attention_impl="xla")
+        lr = 1e-3
+        rng = np.random.default_rng(5)
+        toks = rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        params0, out = None, {}
+        for where in ("cpu", dev):
+            bundle = build_steps(cfg, lr_fn=lambda s: torch.tensor(lr), device=where)
+            if params0 is None:
+                params0 = bundle.model.init(torch.Generator().manual_seed(0), "cpu")
+                attn = params0["layers"]["attn"]
+                for key in ("wq", "wk", "wv"):  # [L, d, H, dh]: fan-in H -> d
+                    d, h = attn[key].shape[-3:-1]
+                    attn[key] = attn[key] * (h / d) ** 0.5
+            params = tree_map(lambda t: t.to(where), params0)
+            tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+            loss, _, grads = value_and_grad(bundle.model, params, tb)
+            opt = bundle.optimizer.init(params)
+            p1, o1, _ = bundle.train_step(params, opt, batch)
+            out[str(where)] = [
+                float(loss),
+                *([t.cpu() for t in tree_leaves(x)] for x in (grads, o1.m, p1)),
+            ]
+        (lc, gc_, mc, pc), (lg, gg, mg, pg) = out["cpu"], out[str(dev)]
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        for a, b in zip(gc_, gg):
+            assert float((a - b).abs().max()) <= 2e-5 * float(a.abs().max())
+        for a, b in zip(mc, mg):
+            assert float((a - b).abs().max()) <= 2e-5 * float(a.abs().max())
+        for a, b in zip(pc, pg):
+            assert float((a - b).abs().max()) <= 0.1 * lr
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -309,6 +309,22 @@ def test_port_loads_neither_jax_nor_repro():
             out = eng.run([Request(rid=i, prompt=[3, 4, 5], max_new_tokens=2)
                            for i in range(2)], timeout=60)
             assert sorted(r.rid for r in out) == [0, 1] and eng.head == eng.tail
+        import tempfile, torch
+        from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+        from repro_torch.launch.steps import build_steps
+        tiny = configs.get_tiny("qwen2-1.5b")
+        bundle = build_steps(tiny, device="cpu")
+        params = bundle.model.init(torch.Generator().manual_seed(0), device="cpu")
+        opt = bundle.optimizer.init(params)
+        toks = np.arange(16, dtype=np.int32).reshape(2, 8)
+        params, opt, metrics = bundle.train_step(
+            params, opt, {"tokens": toks, "labels": toks})
+        assert np.isfinite(float(metrics["loss"])) and int(opt.step) == 1
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, 1, (params, opt), extra={"stream_position": 1})
+            (p2, o2), extra = restore_checkpoint(d, (params, opt))
+        assert extra["step"] == 1 and torch.equal(p2["embed"]["tok"],
+                                                  params["embed"]["tok"])
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "repro")
