@@ -167,6 +167,25 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    width: qwen2-1.5b in fp32 at initializer_range 0.02, one batch of
    8 x 512, the central difference of the loss along ``g / |g|`` with
    ``eps |g| = 1e-2`` equal to ``|g|`` within ``1e-2`` relative.
+16. the multi-device layer: 16a phase 4's forwarder grid and phase 4c's
+   SACK leg again with ``shards=2``, two rank processes on the one card
+   over ``gloo`` (``repro_torch.distributed.run_ranks``): every field of
+   every lane equal to the unsharded phase's bit for bit on both ranks,
+   the claim check / words route launched once on each, per-rank
+   ``run_s`` and the gather's time (phase 4 itself runs through
+   ``shards="auto"``, one shard with no process group); 16b
+   ``compressed_pod_allreduce`` over NCCL with world size 1 on the whole
+   fp32 gradient tree of qwen2-1.5b at full width: every leaf's int8
+   payload and scale equal to the CPU's, ``red + e == g``, the tree's
+   time, 100 error-feedback steps of the largest leaf; 16c the sharding
+   rules and ``abstract_state()`` of every full config on 16x16 and
+   2x16x16 meshes under torch's ``fake`` backend: every leaf's local
+   shard, fp32 params + AdamW bytes per rank (counted); 16d one
+   full-width train step of qwen2-1.5b under remat ``"none"``,
+   ``"dots"`` and ``"full"``: equal losses and updates, the peak memory
+   of each; 16e ``python -m repro_torch.launch.serve --full`` on the
+   card under COREC and RSS: every request answered, kernels 2-5
+   launched.
 
 Prints one JSON line of per-kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -805,9 +824,10 @@ def _exactly_once(sweep, n: int, what: str) -> None:
                 raise AssertionError(f"{what}/{name}: non-finite {f}")
 
 
-def phase_main(dev) -> dict:
+def forwarder_request() -> SweepRequest:
+    """The main path's sweep: the forwarder grid, five policies fused."""
     seeds, lane, traffic = _grid(AXES, N_SEEDS)
-    req = SweepRequest(
+    return SweepRequest(
         scenario="forwarder",
         seeds=seeds,
         arrival="poisson",
@@ -817,11 +837,29 @@ def phase_main(dev) -> dict:
         n_workers=N_WORKERS,
         max_batch=MAX_BATCH,
     )
+
+
+def _host_lanes(sweep) -> dict:
+    """Every lane's fields of a sweep as numpy, by policy."""
+    return {
+        name: {f: getattr(res, f).cpu().numpy() for f in res._fields}
+        for name, res in sweep.lanes.items()
+    }
+
+
+def phase_main(dev) -> tuple:
+    """4: the forwarder grid, through ``shards="auto"``, which is one
+    shard in a process with no process group; returns its launches and
+    its lanes on the host (phase 16a holds the sharded run against
+    them)."""
+    req = dataclasses.replace(forwarder_request(), shards="auto")
     timings: dict = {}
     claim_check_cuda.launches = 0
     done_prefix_packed_cuda.launches = 0
     sweep = run_sweep(req, timings=timings, device=dev)
     launches = _sweep_launches("phase 4")
+    if "gather_s" in timings:
+        raise AssertionError("phase 4: shards='auto' split the lanes with no group")
     n_claim, n_words = launches["claim_check"], launches["words"]
     lanes = sum(int(r.items.shape[0]) for r in sweep.lanes.values())
     if lanes != 5 * 72 * N_SEEDS:
@@ -829,7 +867,8 @@ def phase_main(dev) -> dict:
     _exactly_once(sweep, N_PACKETS, "main")
     run_s, compile_s = timings["run_s"], timings["compile_s"]
     print(
-        f"phase 4: {lanes} lanes x {N_PACKETS} packets, 5 policies fused: "
+        f"phase 4: {lanes} lanes x {N_PACKETS} packets, 5 policies fused, "
+        f"shards='auto' (one shard: no process group): "
         f"compile_s={compile_s:.4f} run_s={run_s:.4f} "
         f"lane-points/s={lanes / run_s:.2f}; exactly-once on every lane; "
         f"claim_check launches={n_claim}, done_prefix_packed (words route) "
@@ -843,7 +882,7 @@ def phase_main(dev) -> dict:
             f"phase 4: {name:15s} p50 {p50:.6f}  p99 {p99:.6f}  "
             f"reorder% {reorder:.4f}"
         )
-    return launches
+    return launches, _host_lanes(sweep)
 
 
 def _sweep_launches(what: str, route: str = "claim_check") -> dict:
@@ -1006,16 +1045,12 @@ def phase_overload_grid(dev) -> dict:
     return launches
 
 
-def _tcp_sweep(dev, axes, what: str, **tcp_kw):
-    """One TCP sweep of ``axes`` x 14 seeds x 5 policies through
-    run_sweep(scenario="tcp"), the counts set to 0 before it and read
-    after: on every lane popcount == prefix == items == sends and every
-    flow done, one words-route launch.  Prints its timings; returns
-    (sweep, launches, lanes per policy)."""
+def tcp_request(axes, **tcp_kw) -> SweepRequest:
+    """A TCP sweep of ``axes`` x 14 seeds x 5 policies, two flows."""
     arrays, _ = lane_grid(axes, np.arange(N_SEEDS))
     seeds = arrays.pop("__seeds__")
     lane = {k: arrays.pop(k) for k in LANE_KNOBS}
-    req = SweepRequest(
+    return SweepRequest(
         scenario="tcp",
         seeds=seeds,
         lane_params=lane,
@@ -1025,6 +1060,24 @@ def _tcp_sweep(dev, axes, what: str, **tcp_kw):
         n_workers=N_WORKERS,
         max_batch=MAX_BATCH,
     )
+
+
+def sack_knobs() -> dict:
+    """The SACK leg's static and swept TCP knobs: random loss on half the
+    lanes, drop-once control rows on the others."""
+    arrays, _ = lane_grid(TCP_SACK_AXES, np.arange(N_SEEDS))
+    every = np.where(arrays["loss_rate"] == 0.0, float(SACK_LOSS_EVERY), 0.0)
+    return dict(sack=True, link_pps=SACK_LINK_PPS, loss_every=every)
+
+
+def _tcp_sweep(dev, axes, what: str, **tcp_kw):
+    """One TCP sweep of ``axes`` x 14 seeds x 5 policies through
+    run_sweep(scenario="tcp"), the counts set to 0 before it and read
+    after: on every lane popcount == prefix == items == sends and every
+    flow done, one words-route launch.  Prints its timings; returns
+    (sweep, launches, lanes per policy)."""
+    req = tcp_request(axes, **tcp_kw)
+    seeds = req.seeds
     timings: dict = {}
     claim_check_cuda.launches = 0
     done_prefix_packed_cuda.launches = 0
@@ -1060,14 +1113,14 @@ def _fct_line(what, name, res, lanes, extra="") -> None:
     )
 
 
-def phase_tcp_grid(dev) -> dict:
+def phase_tcp_grid(dev) -> tuple:
     """4c: the TCP section of benchmarks/jax_sweep.py at full size through
     run_sweep(scenario="tcp"): the grid (10,080 lanes), then the SACK leg
     (1,120 lanes) under random loss with drop-once control rows, which
     must also leave nothing undelivered; FCT p50/p99 and retransmissions
     per lane per policy, and corec / scaleout FCT p99 under random loss
     beside the reference benchmark's band.  Returns each sweep's
-    launches."""
+    launches and the SACK leg's lanes on the host (for phase 16a)."""
     out = {}
     sweep, out["tcp"], lanes = _tcp_sweep(dev, TCP_AXES, "TCP grid")
     if lanes * len(sweep.lanes) != TCP_WORDS[0]:
@@ -1077,14 +1130,11 @@ def phase_tcp_grid(dev) -> dict:
     del sweep
     arrays, _ = lane_grid(TCP_SACK_AXES, np.arange(N_SEEDS))
     loss = arrays["loss_rate"]
-    every = np.where(loss == 0.0, float(SACK_LOSS_EVERY), 0.0)
     sweep, out["tcp_sack"], lanes = _tcp_sweep(
         dev,
         TCP_SACK_AXES,
         f"SACK leg (random loss {max(loss):g}, drop-once 1/{SACK_LOSS_EVERY})",
-        sack=True,
-        link_pps=SACK_LINK_PPS,
-        loss_every=every,
+        **sack_knobs(),
     )
     random = torch.as_tensor(loss > 0.0, device=dev)
     pkts = torch.as_tensor(TCP_FLOW_PKTS, device=dev)
@@ -1102,7 +1152,7 @@ def phase_tcp_grid(dev) -> dict:
         f"phase 4c: corec / scaleout FCT p99 under random loss {ratio:.6f} "
         f"(the reference benchmark's band: <= {IMPAIRMENT_P99_BAND}; {side})"
     )
-    return out
+    return out, _host_lanes(sweep)
 
 
 def phase_other_traffic(dev) -> None:
@@ -3020,6 +3070,344 @@ def phase_train_grad(dev) -> None:
     )
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the multi-device layer (lane shards, the pod all-reduce, the
+# sharding rules at production size, "dots" remat, the serve launcher)
+# ----------------------------------------------------------------------
+#: 16a: two ranks in two processes share the one card over gloo (NCCL
+#: refuses two ranks on one GPU; gloo gathers through host memory)
+SHARD_RANKS = 2
+SHARD_BACKEND = "gloo"
+SHARD_TIMEOUT_S = 600.0
+#: 16d: the remat policies of one full-width train step
+REMAT_POLICIES = ("none", "dots", "full")
+#: 16b: error-feedback steps on one leaf, and the leaf's largest |g| after
+#: scaling (the typical largest of tests/test_optim.py's 128 unit normals)
+EF_STEPS = 100
+EF_LEAF_MAX = 2.5
+
+
+def _shard_rank(rank: int, world: int, requests, device) -> list:
+    """One rank of phase 16a: each request through the lane shards."""
+    from repro_torch.distributed import sweep_rank
+
+    return [sweep_rank(rank, world, req, device) for req in requests]
+
+
+def _same_lanes(got: dict, want: dict, what: str) -> None:
+    for name, fields in want.items():
+        for f, w in fields.items():
+            g = got[name][f]
+            if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"{what}/{name}: {f} differs from the unsharded run")
+
+
+def phase_sharded(main_lanes: dict, sack_lanes: dict, device: str) -> None:
+    """16a: the forwarder grid of phase 4 (5,040 lanes x 2,000 packets) and
+    the SACK leg of phase 4c (1,120 lanes) with ``shards=2``: two ranks,
+    each in its own process on ``device`` (the one card), over gloo
+    (named here, not picked as a fallback).  Every field of every lane
+    equals the unsharded
+    phase's, bit for bit, on both ranks; the claim check (forwarder) and
+    the words route (SACK) launched once on each rank, on the gathered
+    lanes.  The kernels were built in phase 2, so no rank builds."""
+    from repro_torch.distributed import run_ranks
+
+    reqs = [
+        dataclasses.replace(forwarder_request(), shards=SHARD_RANKS),
+        dataclasses.replace(tcp_request(TCP_SACK_AXES, **sack_knobs()), shards=SHARD_RANKS),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        _shard_rank, SHARD_RANKS, reqs, device, backend=SHARD_BACKEND,
+        timeout=SHARD_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    for i, (what, want, route, lanes) in enumerate(
+        (("forwarder grid", main_lanes, "claim_check", 5040),
+         ("SACK leg", sack_lanes, "words", 1120))
+    ):
+        parts = []
+        for out in ranks:
+            got = out[i]
+            _same_lanes(got["lanes"], want, f"phase 16a {what} rank {got['rank']}")
+            expect = dict(claim_check=0, words=0)
+            expect[route] = 1
+            if got["launches"] != expect:
+                raise AssertionError(
+                    f"phase 16a {what} rank {got['rank']}: launches {got['launches']}"
+                )
+            t = got["timings"]
+            parts.append(
+                f"rank {got['rank']} run_s={t['run_s']:.4f} gather_s={t['gather_s']:.4f} "
+                f"compile_s={t['compile_s']:.4f} {route} launches={got['launches'][route]}"
+            )
+        total = sum(len(next(iter(f.values()))) for f in want.values())
+        if total != lanes:
+            raise AssertionError(f"phase 16a {what}: {total} lanes")
+        print(
+            f"phase 16a: {what}, {total} lanes, shards={SHARD_RANKS} over "
+            f"{SHARD_BACKEND} on one card: every field of every lane == the "
+            f"unsharded phase's, bit for bit, on both ranks; " + "; ".join(parts)
+        )
+    print(
+        f"phase 16a: both sweeps, {SHARD_RANKS} rank processes (spawned, "
+        f"rendezvous, the two sweeps, the gathers): {wall:.2f} s wall"
+    )
+
+
+def _qwen_grads(dev):
+    """fp32 gradients of qwen2-1.5b at full width (bf16 compute, the
+    plain routes) on one 8 x 512 batch, seed-0 weights drawn on the card."""
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import value_and_grad
+
+    cfg = configs.get(MODEL).replace(attention_impl="xla")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    raw = SyntheticLMSource(cfg.vocab, 8, 512, SEED + 1).batch_at(0)
+    batch = {k: torch.from_numpy(raw[k]).to(dev) for k in ("tokens", "labels")}
+    _, _, grads = value_and_grad(model, params, batch)
+    del params
+    return grads
+
+
+def phase_pod_allreduce(dev, smi: str, backend: str = "nccl") -> None:
+    """16b: ``compressed_pod_allreduce`` over NCCL with world size 1, on
+    the whole fp32 gradient tree of qwen2-1.5b at full width.  Per leaf
+    the int8 payload and the scale equal the plain CPU computation
+    exactly, and red + e == g to fp32; then 100 error-feedback steps of
+    the largest leaf (scaled to a largest |g| of 2.5) keep the mean
+    within 2e-3, as tests/test_optim.py does."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import (
+        compressed_pod_allreduce,
+        error_feedback_init,
+        quantize_int8,
+    )
+
+    grads = _qwen_grads(dev)
+    leaves = tree_leaves(grads)
+    n_params = sum(g.numel() for _, g in leaves)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        err = error_feedback_init(grads)
+        secs = []
+        for _ in range(2):  # the first call also sets up NCCL's communicator
+            red = new_e = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            red, new_e = compressed_pod_allreduce(grads, err)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        del err
+        worst = 0.0
+        for (path, g), (_, r), (_, e) in zip(leaves, tree_leaves(red), tree_leaves(new_e)):
+            q, scale = quantize_int8(g)
+            q_cpu, scale_cpu = quantize_int8(g.cpu())
+            if not (torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)):
+                raise AssertionError(f"phase 16b: {path}: q or scale != the CPU's")
+            gap = float((r + e - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            if gap > 1e-6:
+                raise AssertionError(f"phase 16b: {path}: red + e - g at {gap:.3e}")
+            worst = max(worst, gap)
+        del red, new_e
+        name, big = max(leaves, key=lambda kv: kv[1].numel())
+        g = {"w": big * (EF_LEAF_MAX / big.abs().max())}
+        del grads, leaves, big
+        e = error_feedback_init(g)
+        acc = torch.zeros_like(g["w"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(EF_STEPS):
+            r, e = compressed_pod_allreduce(g, e)
+            acc += r["w"]
+        torch.cuda.synchronize()
+        ef_s = time.perf_counter() - t1
+        bias = float((acc / EF_STEPS - g["w"]).abs().max())
+        if not bias <= 2e-3:
+            raise AssertionError(f"phase 16b: mean bias {bias} after {EF_STEPS} steps")
+    finally:
+        dist.destroy_process_group()
+    print(
+        f"phase 16b: compressed_pod_allreduce, {backend} world size 1, over "
+        f"the {n_params:,} fp32 gradients of {MODEL} (full width, 8 x 512 "
+        f"tokens): q and scale == the CPU's on every leaf, "
+        f"red + e == g within {worst:.3e} of each leaf's largest |g|; the whole "
+        f"tree in {secs[1] * 1e3:.3f} ms (the first call, NCCL's setup included: "
+        f"{secs[0] * 1e3:.3f} ms; synchronised; {smi}); {EF_STEPS} "
+        f"error-feedback steps of {name} ({g['w'].numel():,} elements, largest "
+        f"|g| scaled to {EF_LEAF_MAX}) in {ef_s:.3f} s, mean bias {bias:.3e} "
+        f"(<= 2e-3 asserted)"
+    )
+
+
+def phase_production_rules() -> None:
+    """16c: the sharding rules and abstract state at production size, for
+    each full config on 16x16 and 2x16x16 DeviceMeshes under torch's
+    ``fake`` backend (one process, nothing placed): ``abstract_state()``
+    on ``meta``, every parameter leaf's local shard (``distribute_tensor``
+    of the meta leaf) equal to ``NamedSharding.shard_shape``, and the
+    bytes a rank holds of fp32 params + AdamW moments, counted from the
+    local shapes (not measured)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_steps
+
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        try:
+            if dist.get_backend() != "fake":
+                raise AssertionError(f"phase 16c: backend {dist.get_backend()}")
+            cells = []
+            for arch in configs.ALL_ARCHS:
+                bundle = build_steps(configs.get(arch), device="cpu", mesh=mesh)
+                params, opt = bundle.abstract_state()
+                local = 0
+                for (path, a), (_, sh) in zip(
+                    tree_leaves(params), tree_leaves(bundle.param_shardings)
+                ):
+                    if a.device.type != "meta":
+                        raise AssertionError(f"phase 16c: {arch} {path} allocated")
+                    got = distribute_tensor(a, mesh, list(sh.placements)).to_local()
+                    if tuple(got.shape) != sh.shard_shape(a.shape):
+                        raise AssertionError(f"phase 16c: {arch} {path} local shape")
+                    local += got.numel() * a.element_size()
+                state = 3 * local + opt.step.element_size()
+                cells.append(f"{arch} {state / 1e9:.3f} GB")
+        finally:
+            dist.destroy_process_group()
+        shape = "x".join(str(s) for s in mesh.shape)
+        print(
+            f"phase 16c: {shape} {mesh.mesh_dim_names} under the fake backend "
+            f"({time.perf_counter() - t0:.2f} s): abstract_state on meta, every "
+            f"leaf's local shard == shard_shape; fp32 params + AdamW m, v per "
+            f"rank (counted from the shapes, not measured): " + ", ".join(cells)
+        )
+
+
+def phase_remat(dev, smi: str) -> None:
+    """16d: one train step of qwen2-1.5b at full width (8 x 512 tokens,
+    the plain routes) under each remat policy, from the same seed-0
+    weights on the card.  The losses are equal bit for bit and so is every
+    updated leaf but the token table, whose gradient the card sums with
+    atomics (held within 2 lr, the most an AdamW step of 1 moves an
+    element); the peak device memory of each, over the forward + backward
+    alone and over the whole step."""
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.steps import build_steps, value_and_grad
+
+    base = configs.get(MODEL).replace(attention_impl="xla")
+    raw = SyntheticLMSource(base.vocab, 8, 512, SEED + 1).batch_at(0)
+    batch = {k: raw[k] for k in ("tokens", "labels")}
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    first, lr, rows = None, 3e-4, []
+    for policy in REMAT_POLICIES:
+        cfg = base.replace(remat=True, remat_policy=policy)
+        bundle = build_steps(cfg, device=dev)
+        params = bundle.model.init(
+            torch.Generator(device=dev).manual_seed(SEED), device=dev
+        )
+        opt = bundle.optimizer.init(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        # the forward + backward alone first: the functional AdamW update
+        # that follows peaks at the same state for every policy
+        torch.cuda.reset_peak_memory_stats()
+        grads = value_and_grad(bundle.model, params, dev_batch)[2]
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated()
+        del grads
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, new_opt, metrics = bundle.train_step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt, new_opt
+        loss = float(metrics["loss"])
+        host = {k: v.cpu() for k, v in tree_leaves(new)}
+        del new, metrics, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        if first is None:
+            first = (loss, host)
+            tok = 0.0
+        else:
+            if loss != first[0]:
+                raise AssertionError(f"phase 16d: {policy} loss {loss} vs {first[0]}")
+            for k, v in host.items():
+                if k == "embed/tok":
+                    continue
+                if not torch.equal(v, first[1][k]):
+                    diff = float((v - first[1][k]).abs().max())
+                    raise AssertionError(f"phase 16d: {policy} {k} differs by {diff}")
+            tok = float((host["embed/tok"] - first[1]["embed/tok"]).abs().max())
+            if tok > 2 * lr:
+                raise AssertionError(f"phase 16d: {policy} token table off by {tok}")
+        rows.append((policy, grad_peak, peak, step_s, tok))
+        del host
+    peaks = {p: b for p, b, _, _, _ in rows}
+    order = "between" if peaks["none"] >= peaks["dots"] >= peaks["full"] else "NOT between"
+    print(
+        f"phase 16d: {MODEL} full width, one train step of 8 x 512 tokens "
+        f"(fp32 masters, bf16 compute, plain routes) under remat "
+        + ", ".join(
+            f"{p}: peak forward + backward {g / 1e9:.2f} GB, whole step "
+            f"{b / 1e9:.2f} GB, step {t * 1e3:.1f} ms, token table {d:.3e} "
+            f"from none's"
+            for p, g, b, t, d in rows
+        )
+        + f"; losses equal ({first[0]:.6f}) and every other leaf bit-identical; "
+        f"the forward + backward peak of 'dots' lies {order} 'none''s and "
+        f"'full''s ({smi})"
+    )
+
+
+def phase_serve_launcher() -> None:
+    """16e: ``python -m repro_torch.launch.serve --full`` on the card (its
+    default device) under COREC and RSS ingestion: every request answered,
+    and the batched done-prefix, flash attention, decode attention and
+    RMSNorm kernels launched (the counts set to 0 before each, read
+    after).  The reduced config, whose heads of 16 the attention kernels
+    do not take, is refused before anything is built."""
+    from repro_torch.launch import serve
+
+    try:
+        serve.main([])
+    except ValueError as e:
+        if "--full" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 16e: the tiny config was served on the card")
+    for policy in ("corec", "rss"):
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = serve.main(["--full", "--policy", policy])
+        wall = time.perf_counter() - t0
+        got = _all_launches()
+        if len(res) != 24 or any(len(r.tokens) != 8 + 1 for r in res):
+            raise AssertionError(f"phase 16e: {policy}: {len(res)} of 24 answered")
+        per = dict(
+            done_prefix_batch=got["done_prefix_batch"] + got["done_prefix_batch_mapped"],
+            flash_attention=got["flash_attention"],
+            decode_attention=got["decode_attention"],
+            rmsnorm=got["rmsnorm"] + got["add_rmsnorm"],
+        )
+        if not all(per.values()):
+            raise AssertionError(f"phase 16e: {policy}: launches {per}")
+        print(
+            f"phase 16e: launch.serve --full --policy {policy} on the card: 24 of 24 "
+            f"requests answered with 9 tokens in {wall:.2f} s (model build "
+            f"included); launches {per}"
+        )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3057,12 +3445,14 @@ def main() -> int:
         phase_rwkv6(dev, g),
         phase_ssd(dev, g),
     ]
+    main_launches, main_lanes = phase_main(dev)
     sweeps = {  # each sweep's counts set to 0 before it, read after
-        "forwarder": phase_main(dev),
+        "forwarder": main_launches,
         "serving": phase_serving_grid(dev),
         "overload": phase_overload_grid(dev),
-        **phase_tcp_grid(dev),
     }
+    tcp_launches, sack_lanes = phase_tcp_grid(dev)
+    sweeps.update(tcp_launches)
     kernel = _packed_row(kernel, claim, sweeps)
     phase_other_traffic(dev)
     phase_agreement(dev)
@@ -3093,6 +3483,17 @@ def main() -> int:
     phase_train_grad(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 16: the multi-device layer
+    phase_sharded(main_lanes, sack_lanes, str(dev))
+    del main_lanes, sack_lanes
+    phase_pod_allreduce(dev, smi.splitlines()[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_production_rules()
+    phase_remat(dev, smi.splitlines()[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_launcher()
     # a kernel's launches through all its wrappers: the RMSNorm kernel as
     # the plain and the fused norm, the batched done-prefix kernel on
     # device tensors and on the engine's pinned ring state

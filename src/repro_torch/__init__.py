@@ -7,7 +7,11 @@ sweep request, traffic constants) it keeps as its own copy.
 
 Layout:
   compat.py            device resolution (CUDA unless the caller asks
-                       for the CPU; no silent fallback)
+                       for the CPU; no silent fallback) and the lane
+                       axis' process group (make_mesh, lane_mesh,
+                       device_count, resolve_shards)
+  distributed.py       run_ranks: W ranks of one function in W processes
+                       over torch.distributed (a free port, a deadline)
   kernels/ref.py       plain PyTorch versions of every kernel
   kernels/csrc/*.cu    hand-written CUDA C++ for sm_90a
   kernels/_build.py    nvcc -> shared library -> ctypes, at first use
@@ -17,6 +21,10 @@ Layout:
   core/policy.py       the five vectorized policies by name
   core/torchplane.py   the claim-compacted lane engine
   core/sweep.py        SweepRequest -> run_sweep -> SweepResult
+  core/shard.py        the lane axis split over a process group's ranks
+                       (shards=N), gathered back in the reference's order
+  sharding.py          logical-axis sharding rules -> partition specs and
+                       DTensor placements (DeviceMesh or AbstractMesh)
   core/{atomics,ring,baseline}.py  the host-side COREC ring (own copies)
   config.py, configs/  ArchConfig and the ten configurations (own copies)
   models/              the dense decoder (spec, layers, transformer),
@@ -24,13 +32,17 @@ Layout:
   serving/             EngineConfig / InferenceEngine behind COREC or
                        RSS ingestion (request, scheduler: own copies)
   tree.py              pytree helpers in jax's leaf order and paths
-  optim/               AdamW and the cosine / WSD schedules
+  optim/               AdamW, the cosine / WSD schedules, and the int8
+                       pod all-reduce with error feedback
   launch/              build_steps (train, prefill, serve steps on one
-                       device) and the training launcher
+                       device, and with a mesh the reference's shardings
+                       and abstract_state), the production meshes (under
+                       torch's fake backend without a cluster), the meta
+                       input specs, and the training and serving launchers
   train/               Trainer: data ring, step, checkpoints, restart
   checkpoint/          atomic, hashed checkpoints in the reference's layout
-  data/, runtime/      the data pipeline and the straggler detector
-                       (own copies)
+  data/, runtime/      the data pipeline, the straggler and failure
+                       detectors and the elastic mesh plan (own copies)
 """
 
 __all__ = [
@@ -40,12 +52,14 @@ __all__ = [
     "configs",
     "core",
     "data",
+    "distributed",
     "kernels",
     "launch",
     "models",
     "optim",
     "runtime",
     "serving",
+    "sharding",
     "train",
     "tree",
 ]

@@ -122,11 +122,16 @@ def restore_checkpoint(
     directory: str | Path,
     like: Any,
     step: Optional[int] = None,
+    shardings: Any = None,
     verify: bool = True,
 ) -> Tuple[Any, Dict]:
     """Reassemble the leaves of ``step`` (default: the latest) into the
     structure of ``like``, whose leaf paths must equal the manifest's.
-    Returns (state, extra with ``"step"``)."""
+    ``shardings`` (a tree of ``repro_torch.sharding.NamedSharding`` of
+    ``like``'s structure, over a ``DeviceMesh`` of any size) places each
+    leaf as a DTensor on its mesh instead: the mesh need not be the one
+    the checkpoint was saved from.  Returns (state, extra with
+    ``"step"``)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -156,7 +161,14 @@ def restore_checkpoint(
             arr = np.concatenate([sh[key] for sh in shards if key in sh.files], axis=0)
         leaves.append(_like_leaf(arr, like_leaf))
     state = tree_unflatten(like, leaves)
+    if shardings is not None:
+        state = tree_map(_place, state, shardings)
     return state, manifest["extra"] | {"step": manifest["step"]}
+
+
+def _place(leaf, sharding):
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+    return sharding.distribute(t.to(sharding.mesh.device_type))
 
 
 class AsyncCheckpointer:

@@ -4,9 +4,10 @@ The port's own copy of ``repro.core.sweep``'s request and result types,
 field for field, and :func:`run_sweep` for the ``forwarder``,
 ``queueing`` and ``serving`` scenarios on
 :mod:`repro_torch.core.torchplane` and the ``tcp`` scenario on
-:mod:`repro_torch.core.tcptorch`.  The option not ported yet (lane
-sharding) raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+:mod:`repro_torch.core.tcptorch`.  ``shards=N`` splits the lane axis
+over the N ranks of an initialised process group, each of which calls
+:func:`run_sweep` with the same request (see
+:mod:`repro_torch.distributed` to start them).
 
 ===========  =========================================================
 forwarder    open-loop L3 forwarder (sec 4.3.1): per-size lognormal
@@ -107,11 +108,6 @@ def _check_ported(req: SweepRequest) -> None:
             f"unknown scenario {req.scenario!r}; "
             "expected forwarder | queueing | tcp | serving"
         )
-    if req.shards != 1:
-        raise NotImplementedError(
-            "shards != 1 is not ported yet: ROADMAP.md Queue A, item 6 (A6, "
-            "lane sharding)"
-        )
     if req.prefix_impl == "pallas" or req.prefix_interpret:
         raise NotImplementedError(
             "prefix_impl='pallas' / prefix_interpret are the JAX package's TPU "
@@ -134,7 +130,8 @@ def run_sweep(
 
     ``device`` defaults to CUDA and raises on a host without it; pass
     ``"cpu"`` for the plain versions.  ``timings`` (a dict, filled in
-    place and echoed on the result) reports ``compile_s`` / ``run_s``.
+    place and echoed on the result) reports ``compile_s`` / ``run_s``,
+    and ``gather_s`` when the lanes are sharded.
     """
     req = request
     _check_ported(req)
@@ -159,6 +156,7 @@ def run_sweep(
             n_steps=req.n_steps,
             engine=req.engine,
             chunk=req.chunk,
+            shards=req.shards,
             prefix_impl=req.prefix_impl,
             timings=timings,
             device=device,
@@ -205,6 +203,7 @@ def _lane_sweep(req: SweepRequest, names, timings, device) -> list:
         serving=serving,
         claim_budget=req.claim_budget,
         chunk=req.chunk,
+        shards=req.shards,
         prefix_impl=req.prefix_impl,
         return_times=req.return_times,
         timings=timings,

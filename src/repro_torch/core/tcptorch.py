@@ -34,14 +34,15 @@ XLA on the CPU computes ``jnp.cumsum`` over a claim window in blocks of
 the block totals, blocked the same way) and ``jnp.sum`` over more than
 32 elements in blocks of 32 (the window padded by half the slack on
 either side, a sequential sum inside each block, then over the block
-totals); :func:`_xla_cumsum` and :func:`_xla_sum` write those orders
-out, so they round the same on the CPU and on the card.
+totals); ``torchplane._xla_cumsum`` and ``torchplane._xla_sum`` write
+those orders out, so they round the same on the CPU and on the card.
 
 The step has no data-dependent host control flow: the only
 device-to-host read is the chunk boundary's all-lanes-quiet check.
 Draws come from each lane's own CPU ``torch.Generator``, as in
-:mod:`~repro_torch.core.torchplane`.  Lane sharding is not ported
-(ROADMAP.md Queue A, item 6).
+:mod:`~repro_torch.core.torchplane`, so ``shards=N`` (the lane axis
+over the N ranks of a process group, :mod:`repro_torch.core.shard`)
+leaves every lane's result as it was.
 """
 
 from __future__ import annotations
@@ -53,11 +54,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import compat
 from ..kernels import doneprefix
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as kref
+from .shard import all_gather_lanes, shard_knobs, shard_seeds, shard_setup
 from .torchplane import (
     FaultParams,
     LaneParams,
@@ -65,6 +68,8 @@ from .torchplane import (
     _lane_tensors,
     _pick,
     _resolve_policy,
+    _xla_cumsum,
+    _xla_sum,
     default_fault_params,
     default_lane_params,
     hash_u01,
@@ -216,50 +221,6 @@ def _bit_range(lo: torch.Tensor, hi: torch.Tensor, mw: int) -> torch.Tensor:
     body = torch.where(n >= 32, _M32, torch.bitwise_left_shift(one, n) - 1)
     out = torch.bitwise_left_shift(body, lo_rel) & _M32
     return torch.where(n > 0, out, 0)
-
-
-# ----------------------------------------------------------------------
-# The reference's float32 summation orders
-# ----------------------------------------------------------------------
-def _seq_prefix(x: torch.Tensor) -> torch.Tensor:
-    """Sequential float32 prefix along the last axis (one add per column)."""
-    cols = [x[..., 0]]
-    for i in range(1, x.shape[-1]):
-        cols.append(cols[-1] + x[..., i])
-    return torch.stack(cols, dim=-1)
-
-
-def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.cumsum`` along the last axis in XLA's CPU order: blocks of
-    16, a sequential prefix inside each, plus the exclusive prefix of the
-    block totals (itself blocked the same way)."""
-    n, block = x.shape[-1], 16
-    if n <= block:
-        return _seq_prefix(x)
-    nb = -(-n // block)
-    xb = torch.nn.functional.pad(x, (0, nb * block - n))
-    inner = _seq_prefix(xb.reshape(*x.shape[:-1], nb, block))
-    incl = _xla_cumsum(inner[..., -1])
-    excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
-    out = inner + excl[..., None]
-    return out.reshape(*x.shape[:-1], nb * block)[..., :n]
-
-
-def _xla_sum(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.sum`` along the last axis in XLA's CPU order: up to 32
-    elements sequentially; past that the axis is padded with zeros to
-    whole blocks of 32 (half the slack, rounded down, in front), each
-    block summed sequentially, then the block totals the same way."""
-    n, block = x.shape[-1], 32
-    if n > block:
-        nb = -(-n // block)
-        slack = nb * block - n
-        xb = torch.nn.functional.pad(x, (slack // 2, slack - slack // 2))
-        return _xla_sum(_xla_sum(xb.reshape(*x.shape[:-1], nb, block)))
-    acc = x[..., 0]
-    for i in range(1, n):
-        acc = acc + x[..., i]
-    return acc
 
 
 # ----------------------------------------------------------------------
@@ -1033,15 +994,16 @@ def run_tcp_lanes_fused(
     and load) and ``run_s`` (the sweep, between two device
     synchronisations).  ``setups`` (internal, one per request, from
     :func:`tcp_setups_from_reference`) replaces the port's own draws.
+    ``shards`` splits the lane axis over the ranks of the default process
+    group as :func:`repro_torch.core.torchplane._fused_lanes` does; the
+    words route then checks the gathered words of every lane on every
+    rank.
     """
-    if shards not in (1, "1"):
-        raise NotImplementedError(
-            "shards != 1 is not ported yet: ROADMAP.md Queue A, item 6 (A6, "
-            "lane sharding)"
-        )
     if engine not in ("compacted", "reference"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = compat.resolve_device(device)
+    n_shards = compat.resolve_shards(shards)
+    rank = dist.get_rank() if n_shards > 1 else 0
     requests = list(requests)
     if not requests:
         raise ValueError("run_tcp_lanes_fused: empty request list")
@@ -1078,7 +1040,11 @@ def run_tcp_lanes_fused(
         unknown |= set(fp) - set(FaultParams._fields)
         if unknown:
             raise ValueError(f"unknown sweep knobs: {sorted(unknown)}")
-        segs.append((_resolve_policy(req["policy"]), seeds, lp, tp, fp, sack))
+        lanes = len(seeds)
+        if n_shards > 1:
+            lp, tp, fp = (shard_knobs(d, lanes, n_shards, rank) for d in (lp, tp, fp))
+            seeds = shard_seeds(seeds, n_shards, rank)
+        segs.append((_resolve_policy(req["policy"]), seeds, lp, tp, fp, sack, lanes))
     if len(sb_seen) > 1:
         raise ValueError(
             f"send_burst must agree across fused requests, got {sorted(sb_seen)}"
@@ -1092,14 +1058,24 @@ def run_tcp_lanes_fused(
     t_built = time.perf_counter()
 
     outs = []
-    for i, (pol, seeds, lp, tp, fp, sack) in enumerate(segs):
+    for i, (pol, seeds, lp, tp, fp, sack, whole) in enumerate(segs):
         setup = None if setups is None else setups[i]
+        if setup is not None and n_shards > 1:
+            setup = shard_setup(setup, whole, n_shards, rank)
         c, params, tcp, su, st = _segment(
             pol, seeds, lp, tp, fp, sack, n_arr, t_start, n_workers, max_batch,
             tb, s_pad, sb, dev, setup,
         )
         _run_segment(c, params, tcp, su, st, engine, chunk)
         outs.append(_tcp_outputs(st, su, c.t_start, c.f_cnt, c.max_pkts, tb))
+    if n_shards > 1:
+        # every rank's lanes in rank order, the padding dropped
+        if timings is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_gather = time.perf_counter()
+        outs = [all_gather_lanes(o, n_shards, seg[6]) for o, seg in zip(outs, segs)]
+        if timings is not None:
+            timings["gather_s"] = time.perf_counter() - t_gather
 
     # exactly-once on the claim bitmaps: every transmission put on the
     # link was claimed by exactly one batch (popcount == prefix == sends),

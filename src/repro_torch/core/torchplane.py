@@ -35,14 +35,16 @@ pin the compacted engine to it bit for bit.
 Traffic is drawn per lane from a CPU ``torch.Generator`` seeded with
 the lane's seed, so a lane's draws depend on its seed and parameters
 only (fused == per-policy runs; lane count cannot shift draws) and do
-not depend on the device.  ``torch`` draws differ from ``jax.random``,
-so parity with the reference on own draws is distributional; exact
-parity is held on the reference's own draws carried across with
-:func:`setups_from_reference`.  The counter-hash draws of the overload
+not depend on the device.  The float prefix sums over those draws run
+in a written-out order (:func:`_xla_cumsum`), so the lane count of a
+call or of a shard cannot shift their rounding either.  ``torch``
+draws differ from ``jax.random``, so parity with the reference on own
+draws is distributional; exact parity is held on the reference's own
+draws carried across with :func:`setups_from_reference`.  The counter-hash draws of the overload
 plane (:func:`hash_u01`) are the reference's, bit for bit.
 
-Not yet ported (each raises by name): the TCP lane engine and lane
-sharding.
+``shards=N`` splits the lane axis over the N ranks of a process group
+(:mod:`repro_torch.core.shard`).
 """
 
 from __future__ import annotations
@@ -54,10 +56,12 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import compat
 from ..kernels import doneprefix
 from ..kernels import ops as kernel_ops
+from .shard import all_gather_lanes, shard_knobs, shard_seeds, shard_setup
 
 __all__ = [
     "TorchPolicy",
@@ -443,6 +447,55 @@ def steal_choice(q_arr, qptr, own, t0):
 
 
 # ----------------------------------------------------------------------
+# The reference's float32 summation orders, written out: every float
+# prefix sum of the engines (arrival times, service prefixes, the TCP
+# engine's claim windows) goes through these, so that a lane's value
+# does not depend on how many lanes share its tensor.  torch.cumsum on
+# the card picks its block shape from the row count, which moves its
+# rounding with the lane count of a call (and of a shard).
+# ----------------------------------------------------------------------
+def _seq_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 prefix along the last axis (one add per column)."""
+    cols = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., i])
+    return torch.stack(cols, dim=-1)
+
+
+def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` along the last axis in XLA's CPU order: blocks of
+    16, a sequential prefix inside each, plus the exclusive prefix of the
+    block totals (itself blocked the same way)."""
+    n, block = x.shape[-1], 16
+    if n <= block:
+        return _seq_prefix(x)
+    nb = -(-n // block)
+    xb = torch.nn.functional.pad(x, (0, nb * block - n))
+    inner = _seq_prefix(xb.reshape(*x.shape[:-1], nb, block))
+    incl = _xla_cumsum(inner[..., -1])
+    excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+    out = inner + excl[..., None]
+    return out.reshape(*x.shape[:-1], nb * block)[..., :n]
+
+
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum`` along the last axis in XLA's CPU order: up to 32
+    elements sequentially; past that the axis is padded with zeros to
+    whole blocks of 32 (half the slack, rounded down, in front), each
+    block summed sequentially, then the block totals the same way."""
+    n, block = x.shape[-1], 32
+    if n > block:
+        nb = -(-n // block)
+        slack = nb * block - n
+        xb = torch.nn.functional.pad(x, (slack // 2, slack - slack // 2))
+        return _xla_sum(_xla_sum(xb.reshape(*x.shape[:-1], nb, block)))
+    acc = x[..., 0]
+    for i in range(1, n):
+        acc = acc + x[..., i]
+    return acc
+
+
+# ----------------------------------------------------------------------
 # Traffic: standard draws per lane on the CPU, transforms on the device
 # ----------------------------------------------------------------------
 def _lane_draws(seeds, workload, service, n, n_flows, n_draws):
@@ -476,19 +529,19 @@ def _gen_traffic(draws, tp: TrafficParams, workload: str, service: str):
     col = {f: getattr(tp, f)[:, None] for f in TrafficParams._fields}
     z = draws["gap"]
     if workload == "udp":
-        arr = torch.cumsum(z / col["rate"], dim=1)
+        arr = _xla_cumsum(z / col["rate"])
         sizes = col["pkt_size"]
     elif workload == "mawi":
         sigma = col["burstiness"]
         mu = torch.log(1.0 / col["rate"]) - sigma**2 / 2
-        arr = torch.cumsum(torch.exp(z * sigma + mu), dim=1)
+        arr = _xla_cumsum(torch.exp(z * sigma + mu))
         table = torch.from_numpy(_MAWI_SIZES).to(z.device)
         sizes = table[draws["size"]]
     elif workload == "diurnal":
         # lambda(t) = rate * (1 + amp sin wt) by time-rescaling: invert
         # the cumulative intensity of a unit-rate process by damped
         # Newton (lambda >= rate * (1 - amp) > 0), as the reference does
-        s = torch.cumsum(z, dim=1)
+        s = _xla_cumsum(z)
         rate = col["rate"]
         amp = col["diurnal_amp"].clamp(0.0, 0.95)
         w = 2.0 * math.pi / col["diurnal_period"]
@@ -950,7 +1003,7 @@ def _lane_setup(
     q_arr.scatter_(1, qid * (n_slots + 1) + rank, arr)
     svc_qr = torch.zeros((lanes, n_workers * n_slots), device=device)
     svc_qr.scatter_(1, qid * n_slots + rank, svc)
-    cumsvc = torch.cumsum(svc_qr.view(lanes, n_workers, n_slots), dim=2)
+    cumsvc = _xla_cumsum(svc_qr.view(lanes, n_workers, n_slots)).contiguous()
     widx = torch.arange(n_workers, device=device, dtype=torch.float32)
     crash_w = torch.where(
         widx == fparams.crash_worker[:, None], fparams.crash_t[:, None], _INF
@@ -1291,6 +1344,7 @@ def _fused_lanes(
     serving: bool = False,
     claim_budget: int | None = None,
     chunk: int = 64,
+    shards: int | str = 1,
     prefix_impl: str = "auto",
     return_times: bool = False,
     timings: dict | None = None,
@@ -1316,8 +1370,18 @@ def _fused_lanes(
     sweep, between two device synchronisations).  ``setups``
     (internal, one per request, from :func:`setups_from_reference`)
     replaces the port's own draws.
+
+    ``shards=N > 1`` (or ``"auto"``: the default process group's world
+    size) splits the lane axis over the N ranks of the default process
+    group, each of which makes this same call on its own ``device``
+    (:mod:`repro_torch.core.shard`): rank r scans the r-th slice of every
+    segment padded to a multiple of N, the ranks all-gather the per-lane
+    outputs and each runs the claim check on every lane and returns every
+    result; ``timings`` then also receives ``gather_s``.
     """
     dev = compat.resolve_device(device)
+    n_shards = compat.resolve_shards(shards)
+    rank = dist.get_rank() if n_shards > 1 else 0
     requests = list(requests)
     if not requests:
         raise ValueError("_fused_lanes: empty request list")
@@ -1343,10 +1407,15 @@ def _fused_lanes(
         unknown |= set(sp) - set(ServingParams._fields)
         if unknown:
             raise ValueError(f"unknown sweep knobs: {sorted(unknown)}")
-        segs.append((_resolve_policy(req["policy"]), seeds, lp, tp, fp, sp, ov))
+        lanes = len(seeds)
+        if n_shards > 1:
+            lp, tp, fp, sp = (shard_knobs(d, lanes, n_shards, rank) for d in (lp, tp, fp, sp))
+            seeds = shard_seeds(seeds, n_shards, rank)
+        segs.append((_resolve_policy(req["policy"]), seeds, lp, tp, fp, sp, ov, lanes))
     # every segment shares the attempt-slot shape: requests x the largest
-    # copy fan-out (1 without retry knobs)
-    n_slots = n * max(seg[-1].cpr for seg in segs)
+    # copy fan-out (1 without retry knobs); it and the budget are fixed
+    # before the split, so every rank scans to the same bound
+    n_slots = n * max(seg[6].cpr for seg in segs)
     budget = n_slots if claim_budget is None else int(claim_budget)
     budget = max(1, min(budget, n_slots))
     s_pad = -(-budget // chunk) * chunk
@@ -1362,7 +1431,7 @@ def _fused_lanes(
     # the claim check then runs once over all of them
     claimed_all = torch.empty((total, n_slots), dtype=torch.bool, device=dev)
     outs, at = [], 0
-    for i, (pol, seeds, lp, tp, fp, sp, ov) in enumerate(segs):
+    for i, (pol, seeds, lp, tp, fp, sp, ov, whole) in enumerate(segs):
         lanes = len(seeds)
         rows = claimed_all[at : at + lanes]
         params = _lane_tensors(lp, LaneParams, lanes, dev)
@@ -1385,6 +1454,8 @@ def _fused_lanes(
             )
         else:
             su = setups[i]
+            if n_shards > 1:
+                su = shard_setup(su, whole, n_shards, rank)
             want = (lanes, n_workers, n_slots)
             if tuple(su.cumsvc.shape) != want or su.u.shape[1] < s_pad:
                 raise ValueError(
@@ -1408,6 +1479,13 @@ def _fused_lanes(
             outs.append(_segment_outputs(st, done, su.arr, n, return_times))
         at += lanes
 
+    if n_shards > 1:
+        if timings is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_gather = time.perf_counter()
+        outs, claimed_all = _gather_segments(outs, claimed_all, segs, n_shards)
+        if timings is not None:
+            timings["gather_s"] = time.perf_counter() - t_gather
     # exactly-once: pack, count and prefix every lane of every segment in
     # one launch; the bit width and the cap are the slot count
     _, popcount, prefix = kernel_ops.claim_check(
@@ -1427,6 +1505,22 @@ def _fused_lanes(
         timings["compile_s"] = t_built - t_start
         timings["run_s"] = t_end - t_built
     return results
+
+
+def _gather_segments(outs, claimed, segs, n_shards: int):
+    """Every rank's per-lane outputs and claimed rows, segment by segment,
+    gathered in rank order with the padding dropped: the unsharded
+    call's ``outs`` and claimed buffer, on every rank."""
+    whole_outs, rows, at = [], [], 0
+    for o, seg in zip(outs, segs):
+        local, lanes = len(seg[1]), seg[7]
+        got = all_gather_lanes(
+            dict(o, claimed=claimed[at : at + local]), n_shards, lanes
+        )
+        rows.append(got.pop("claimed"))
+        whole_outs.append(got)
+        at += local
+    return whole_outs, torch.cat(rows)
 
 
 def lane_grid(axes: dict, seeds) -> Tuple[dict, list]:

@@ -19,9 +19,15 @@
 
 Training runs the plain routes: every kernel refuses an input that
 requires a gradient (``kernels._build.refuse_grad``), so a configuration
-must name them (``attention_impl="xla"``).  The reference's shardings
-(``steps.py:71-91``) come from its ``sharding.py``, which the port has
-not ported (ROADMAP A9): those fields of the bundle stay ``None``.
+must name them (``attention_impl="xla"``).
+
+With a ``mesh`` (a ``DeviceMesh`` or a ``sharding.AbstractMesh``) the
+bundle also carries the reference's shardings (``steps.py:71-91``): the
+train rules and the serve rules (the weights replicated over ``data``
+when their bf16 bytes over the model axis stay under 8 GB), the
+parameter, optimizer-state, batch and cache shardings, and
+``abstract_state()`` (parameters and AdamW state on the ``meta``
+device).  The steps themselves still run on one device.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import torch
 from ..compat import resolve_device
 from ..config import ArchConfig
 from ..models.api import build_model
-from ..optim import AdamW, apply_updates
+from ..models.spec import abstract_params
+from ..optim import AdamW, OptState, apply_updates
+from ..sharding import LogicalRules, abstract_mesh, make_rules, tree_shardings
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["StepBundle", "build_steps", "value_and_grad"]
@@ -48,14 +56,32 @@ class StepBundle:
     prefill_step: Callable
     serve_step: Callable
     device: torch.device
-    # the reference's sharding fields, None on one device (ROADMAP A9)
-    rules: Any = None
-    serve_rules: Any = None
+    # the reference's sharding fields: None when built without a mesh
+    rules: Optional[LogicalRules] = None
+    serve_rules: Optional[LogicalRules] = None
     param_shardings: Any = None
     serve_param_shardings: Any = None
     opt_shardings: Any = None
-    batch_sharding: Optional[Callable] = None
-    cache_shardings: Optional[Callable] = None
+    batch_sharding: Optional[Callable] = None  # batch tree -> shardings tree
+    cache_shardings: Optional[Callable] = None  # (batch, seq) -> shardings
+
+    def abstract_state(self):
+        """(parameters, AdamW state) on the ``meta`` device: the shapes and
+        dtypes the train step carries, nothing allocated."""
+        params = abstract_params(self.model.param_specs())
+        step = torch.empty((), dtype=torch.int32, device="meta")
+        return params, OptState(m=params, v=params, step=step)
+
+
+def _batch_shardings(rules: LogicalRules, batch_specs) -> Any:
+    def leaf(s):
+        if s.dim() >= 3:  # modality embeddings [B, T, d]
+            return rules.sharding(("batch", None, None))
+        if s.dim() == 2:
+            return rules.sharding(("batch", "seq"))
+        return rules.sharding(("batch",))
+
+    return tree_map(leaf, batch_specs)
 
 
 def value_and_grad(model, params, batch):
@@ -78,13 +104,19 @@ def build_steps(
     optimizer: Optional[AdamW] = None,
     microbatches: int = 1,
     device=None,
+    mesh=None,
+    serve_replicate_weights: Optional[bool] = None,
 ) -> StepBundle:
     """The steps of ``cfg`` on ``device`` (default: the card).  ``lr_fn``
     maps the 0-d int32 step count to a 0-d fp32 learning rate (default a
-    constant 3e-4); ``optimizer`` defaults to ``AdamW()``."""
+    constant 3e-4); ``optimizer`` defaults to ``AdamW()``.  ``mesh``
+    fills the sharding fields; ``serve_replicate_weights`` (default:
+    decided from the weights' size) picks the serve rules' ``embed``."""
     dev = resolve_device(device)
     model = build_model(cfg)
     optimizer = optimizer or AdamW()
+    shardings = {} if mesh is None else _shardings(cfg, model, mesh,
+                                                   serve_replicate_weights)
     if lr_fn is None:
 
         def lr_fn(step):
@@ -135,4 +167,34 @@ def build_steps(
         prefill_step=prefill_step,
         serve_step=serve_step,
         device=dev,
+        **shardings,
+    )
+
+
+def _shardings(cfg: ArchConfig, model, mesh, serve_replicate_weights) -> dict:
+    """The reference's sharding fields of the bundle (``steps.py:71-91``)."""
+    rules = make_rules(cfg, mesh)
+    param_specs = model.param_specs()
+    param_sh = tree_shardings(rules, param_specs)
+    # inference sharding != training sharding: a decode step amortizes
+    # ZeRO-3 weight gathers over one token, so when the bf16 weights fit
+    # with model-axis sharding alone they are replicated over 'data'
+    model_ax = abstract_mesh(mesh).shape.get("model", 1)
+    if serve_replicate_weights is None:
+        serve_replicate_weights = (cfg.n_params() * 2 / model_ax) < 8e9
+    serve_rules = make_rules(cfg, mesh)
+    if serve_replicate_weights:
+        serve_rules.table["embed"] = None
+
+    def cache_shardings(batch_size: int, seq_len: int):
+        return tree_shardings(serve_rules, model.cache_specs(batch_size, seq_len))
+
+    return dict(
+        rules=rules,
+        serve_rules=serve_rules,
+        param_shardings=param_sh,
+        serve_param_shardings=tree_shardings(serve_rules, param_specs),
+        opt_shardings=OptState(m=param_sh, v=param_sh, step=rules.sharding(())),
+        batch_sharding=lambda specs: _batch_shardings(rules, specs),
+        cache_shardings=cache_shardings,
     )

@@ -13,14 +13,32 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..compat import resolve_device
 from ..config import ArchConfig
 from .layers import cdtype, label_logprobs, unembed
-from .spec import ParamSpec, init_params, spec_map
+from .spec import ParamSpec, abstract_params, init_params, spec_map
 
 __all__ = ["LMBase"]
+
+
+#: the matmuls without batch dims, whose outputs "dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _stack(n: int, specs):
@@ -59,6 +77,11 @@ class LMBase(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         return init_params(self.param_specs(), generator, dev)
 
+    def abstract_params(self):
+        """The parameter tree on the ``meta`` device: shapes and dtypes,
+        nothing allocated."""
+        return abstract_params(self.param_specs())
+
     def prepare(self, params):
         """The tree to run: every floating leaf outside ``FP32_KEYS`` cast
         to the compute dtype once (the values the reference's cast at
@@ -77,18 +100,19 @@ class LMBase(nn.Module):
     def _remat(self, fn, *args):
         """One layer ``fn(*args)``, honouring ``cfg.remat`` as the
         reference's ``_remat`` does (``transformer.py:54-60``): under grad
-        mode with ``remat`` on and policy ``"full"`` the layer runs under
+        mode with ``remat`` on, policy ``"full"`` runs the layer under
         ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward, not kept); ``"none"``, ``remat`` off, or no grad mode
-        runs it plainly.  ``"dots"`` (jax's
-        ``checkpoint_dots_with_no_batch_dims``) is not ported."""
+        backward, not kept), and ``"dots"`` (jax's
+        ``checkpoint_dots_with_no_batch_dims``) does so selectively: the
+        outputs of the un-batched matmuls (``aten.mm``, ``aten.addmm``,
+        which every projection of a ``[B, S, d]`` activation by a 2-D
+        weight becomes) are kept and the rest is recomputed.
+        ``"none"``, ``remat`` off, or no grad mode runs it plainly."""
         cfg = self.cfg
         if not (torch.is_grad_enabled() and cfg.remat) or cfg.remat_policy == "none":
             return fn(*args)
         if cfg.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported (ROADMAP A9); use 'full' or 'none'"
-            )
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
         if cfg.remat_policy != "full":
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         return checkpoint(fn, *args, use_reentrant=False)

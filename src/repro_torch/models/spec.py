@@ -2,9 +2,10 @@
 
 Models declare their parameters as nested dicts of ``ParamSpec`` leaves
 (shape + logical axis names + initialiser), as ``repro.models.spec``
-does; :func:`init_params` materialises them.  The logical axis names
-are kept for the sharding slice (ROADMAP Queue A9) and read by nothing
-yet.
+does; :func:`init_params` materialises them, :func:`abstract_params`
+gives their stand-ins on the ``meta`` device (shapes and dtypes, nothing
+allocated), and ``repro_torch.sharding`` resolves the logical axis names
+into partition specs over a mesh.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "spec_map", "tree_leaves"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "spec_map", "tree_leaves"]
 
 
 @dataclass(frozen=True)
@@ -68,6 +69,12 @@ def _leaf_init(spec: ParamSpec, generator: torch.Generator, device) -> torch.Ten
         )
         return (x.mul_(std)).to(spec.dtype)
     raise ValueError(f"unknown init {spec.init!r}")
+
+
+def abstract_params(specs):
+    """Every leaf as a tensor on the ``meta`` device: the spec's shape and
+    dtype, no storage (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    return spec_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
 
 
 def init_params(specs, generator: torch.Generator, device):

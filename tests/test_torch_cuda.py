@@ -1201,3 +1201,38 @@ def test_cuda_train_step_equals_cpu():
             assert float((a - b).abs().max()) <= 0.1 * lr
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e4])
+def test_cuda_quantize_int8_equals_cpu(scale):
+    """The pod all-reduce's int8 payload and scale on the card equal the
+    CPU's bit for bit (a Python-scalar divisor would be a reciprocal
+    multiply on the card, an ulp off)."""
+    from repro_torch.optim import quantize_int8
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4097, 33, generator=g) * scale
+    q, s = quantize_int8(x.to(dev))
+    q_cpu, s_cpu = quantize_int8(x)
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_sweep_equals_unsharded():
+    """Two gloo ranks on the one card: every lane of a small two-policy
+    sweep equals the unsharded run on the card, and the claim check ran
+    once on each rank."""
+    from repro_torch.distributed import run_ranks, sweep_rank
+
+    dev = _card()
+    req = SweepRequest(policies=["corec", "hybrid"], seeds=np.arange(7), n_packets=128,
+                       lane_params=dict(batch=np.arange(1, 8, dtype=np.float32)))
+    base = run_sweep(req, device=dev)
+    ranks = run_ranks(sweep_rank, 2, req, str(dev), backend="gloo", timeout=300)
+    for out in ranks:
+        assert out["launches"] == dict(claim_check=1, words=0)
+        for name, res in base.lanes.items():
+            for f in res._fields:
+                assert np.array_equal(out["lanes"][name][f], getattr(res, f).cpu().numpy())

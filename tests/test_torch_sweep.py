@@ -169,9 +169,6 @@ def test_arrival_processes_and_service_kinds_run(scenario, arrival, service):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(scenario="serving", shards=2), "Queue A, item 6"),
-        (dict(scenario="tcp", shards=2), "Queue A, item 6"),
-        (dict(shards=2), "Queue A, item 6"),
         (dict(prefix_impl="pallas"), "TPU route"),
         (dict(prefix_interpret=True), "TPU route"),
     ],
@@ -179,6 +176,15 @@ def test_arrival_processes_and_service_kinds_run(scenario, arrival, service):
 def test_unported_options_raise_by_name(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _sweep(policies=["corec"], n_packets=50, **kw)
+
+
+@pytest.mark.parametrize("scenario", ["serving", "tcp", "forwarder"])
+def test_shards_without_a_process_group_raise(scenario):
+    """``shards=2`` splits the lanes over two ranks of a process group;
+    with none it raises and says how to start one (no serial fallback).
+    The sharded runs themselves: ``tests/test_torch_shard.py``."""
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        _sweep(policies=["corec"], n_packets=50, scenario=scenario, shards=2)
 
 
 def test_bad_inputs_raise():
@@ -325,6 +331,36 @@ def test_port_loads_neither_jax_nor_repro():
             (p2, o2), extra = restore_checkpoint(d, (params, opt))
         assert extra["step"] == 1 and torch.equal(p2["embed"]["tok"],
                                                   params["embed"]["tok"])
+        # the multi-device layer: rules, meshes, abstract state, the pod
+        # all-reduce, "dots" remat, the serve launcher, the lane shards
+        import torch.distributed as dist
+        from repro_torch.distributed import run_ranks, sweep_rank
+        from repro_torch.launch import serve
+        from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+        from repro_torch.optim import compressed_pod_allreduce, error_feedback_init
+        mesh = make_production_mesh(multi_pod=True)
+        sb = build_steps(configs.get("grok-1-314b"), device="cpu", mesh=mesh)
+        ap, _ = sb.abstract_state()
+        assert ap["embed"]["tok"].device.type == "meta"
+        assert sb.param_shardings["embed"]["tok"].spec == ("model", "data")
+        dist.destroy_process_group()
+        make_local_mesh(device="cpu")
+        g = {"w": torch.randn(9)}
+        red, err = compressed_pod_allreduce(g, error_feedback_init(g))
+        assert torch.allclose(red["w"] + err["w"], g["w"], atol=1e-6)
+        dist.destroy_process_group()
+        dots = build_steps(tiny.replace(remat_policy="dots"), device="cpu")
+        _, _, m2 = dots.train_step(dots.model.init(torch.Generator().manual_seed(0),
+                                                   device="cpu"), dots.optimizer.init(
+            params), {"tokens": toks, "labels": toks})
+        assert np.isfinite(float(m2["loss"]))
+        assert len(serve.main(["--device", "cpu", "--requests", "2",
+                               "--new-tokens", "2"])) == 2
+        req = SweepRequest(policies=["corec"], seeds=np.arange(3), n_packets=64)
+        ranks = run_ranks(sweep_rank, 2, req, "cpu", timeout=120)
+        base = run_sweep(req, device="cpu")["corec"]
+        for r in ranks:
+            assert (r["lanes"]["corec"]["p99"] == base.p99.numpy()).all()
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "repro")

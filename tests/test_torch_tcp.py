@@ -302,9 +302,9 @@ def test_tcp_sweep_errors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_sweep(req)
-    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         run_sweep(SweepRequest(scenario="tcp", shards=2, n_packets=20), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tt.run_tcp_lanes("corec", np.arange(2), n_pkts=20, shards=2, device="cpu")
     with pytest.raises(ValueError, match="unknown sweep knobs"):
         tt.run_tcp_lanes("corec", [0], n_pkts=20, tcp_params=dict(rwin=4), device="cpu")
