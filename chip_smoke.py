@@ -186,6 +186,18 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    of each; 16e ``python -m repro_torch.launch.serve --full`` on the
    card under COREC and RSS: every request answered, kernels 2-5
    launched.
+17. the sharded steps and the dry-run: 17a the sharded train, prefill
+   and serve steps of qwen2-1.5b at full width on a (1, 1) DeviceMesh
+   over NCCL against the one-device steps (3 train steps of 8 x 512,
+   the first step's loss and gradients bit for bit but the token
+   table's, summed in another order, within 1.5e-5 of its magnitude;
+   the parameters after 3 steps bit for bit but the table, within 0.1
+   lr; the prefill and one decode step bit for bit); 17b the dry-run's predicted per-rank bytes
+   of that cell beside 17a's measured peak; 17c ``run_cell`` of one
+   cell of each family on 16x16 (train_4k) and grok-1 on 2x16x16, on
+   meta DTensors under the fake backend, one process a cell: bytes,
+   FLOPs, collective bytes and the dominant term per rank on the H100's
+   data-sheet constants.
 
 Prints one JSON line of per-kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
@@ -3408,6 +3420,238 @@ def phase_serve_launcher() -> None:
         )
 
 
+SHARDED_STEPS = 3
+#: 17a's bounds on the token table, the one leaf whose sums run in another
+#: order on the mesh: its step-1 gradient within 1.5e-5 of its largest |g|
+#: (1.115e-5 measured on the H100 in three runs), and after the steps
+#: within 0.1 lr of the one-device table (1.04e-5, 0.035 lr, measured; an
+#: AdamW step moves an element by up to lr, so a missed or wrong update
+#: shows); every other leaf is held bit for bit
+TABLE_GRAD = 1.5e-5
+TABLE_PARAM_LR = 0.1
+DRYRUN_CELLS = (  # (arch, shape, two pods): one cell of each family, and grok-1
+    (MODEL, "train_4k", False),
+    (MOONSHOT, "train_4k", False),
+    (RWKV, "train_4k", False),
+    (ZAMBA, "train_4k", False),
+    (WHISPER, "train_4k", False),
+    (VLM, "train_4k", False),
+    (GROK, "train_4k", True),
+)
+
+
+def _host_tree(tree) -> dict:
+    """A state's leaves on the host by path, DTensors brought back whole."""
+    from repro_torch.launch.steps import gather_state
+
+    return {k: v.cpu() for k, v in tree_leaves(gather_state(tree))}
+
+
+def _differ(a: dict, b: dict) -> dict:
+    """The leaves of ``b`` not bit-identical to ``a``'s: path -> max |diff|."""
+    return {
+        k: float((a[k].float() - b[k].float()).abs().max())
+        for k in a
+        if not torch.equal(a[k], b[k])
+    }
+
+
+def phase_sharded_steps(dev, smi: str) -> dict:
+    """17a: the sharded train, prefill and serve steps of qwen2-1.5b at full
+    width on a (1, 1) ``DeviceMesh`` over NCCL (world size 1), against the
+    one-device ``build_steps`` from the same seed-0 weights: a prefill of
+    the first batch's prompts and one decode step, then 3 train steps of
+    8 x 512 tokens (fp32 masters, bf16 compute, the plain routes).  Held:
+    the first step's loss bit for bit; its gradients bit for bit but the
+    token table's, within ``TABLE_GRAD`` of the leaf's magnitude: the
+    table is gathered in bf16 (after the step's cast), so its gradient
+    sums a token's rows in bf16, and the one-device gather's backward and
+    DTensor's ``F.embedding`` backward sum them in different orders
+    (ROADMAP Queue C); the next steps' losses within 1e-5; after the
+    steps every parameter bit for bit but the token table, within
+    ``TABLE_PARAM_LR`` lr; the prefill's logits and caches and the decode
+    step's bit for bit.  Returns the sharded step's peak device memory
+    and the cell for 17b."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (
+        _batch_shardings,
+        _to_params,
+        build_steps,
+        place,
+        place_state,
+        value_and_grad,
+    )
+
+    cfg = configs.get(MODEL).replace(attention_impl="xla")
+    src = SyntheticLMSource(cfg.vocab, 8, 512, SEED + 1)
+    batches = [
+        {k: torch.from_numpy(src.batch_at(i)[k]) for k in ("tokens", "labels")}
+        for i in range(SHARDED_STEPS)
+    ]
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+    runs = {}
+    for which in ("one device", "sharded"):
+        mesh = make_local_mesh(device=dev) if which == "sharded" else None
+        try:
+            bundle = build_steps(cfg, device=dev, mesh=mesh)
+            params = bundle.model.init(gen(), device=dev)
+            opt = bundle.optimizer.init(params)
+            rules = None
+            batch = {k: v.to(dev) for k, v in batches[0].items()}
+            if mesh is not None:
+                params, opt = place_state(bundle, params, opt)
+                rules = bundle.rules
+                batch = tree_map(place, batch, _batch_shardings(rules, batch))
+            # serving first, from the seed weights both runs share
+            prompt = {"tokens": batches[0]["tokens"]}
+            cache, logits = bundle.prefill_step(params, prompt, max_seq=520)
+            served = place_state(bundle, params, serve=True) if mesh is not None else params
+            tok = batches[1]["tokens"][:, :1].to(dev)
+            cache, step_logits = bundle.serve_step(served, cache, tok)
+            serve = dict(_host_tree(cache), logits=_host_tree({"l": logits})["l"],
+                         step=_host_tree({"l": step_logits})["l"])
+            del served, cache, logits, step_logits
+            loss, _, grads = value_and_grad(bundle.model, params, batch, rules)
+            grads = _host_tree(_to_params(grads, params) if mesh is not None else grads)
+            losses, secs = [float(loss)], []
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i, b in enumerate(batches):
+                t0 = time.perf_counter()
+                params, opt, metrics = bundle.train_step(params, opt, b)
+                losses.append(float(metrics["loss"]))
+                secs.append(time.perf_counter() - t0)
+                if i == 0:
+                    peak = torch.cuda.max_memory_allocated()
+            del opt
+            final = _host_tree(params)
+            del params, bundle
+            runs[which] = dict(losses=losses, grads=grads, final=final, serve=serve,
+                               secs=secs, peak=peak)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, sh = runs["one device"], runs["sharded"]
+    if sh["losses"][0] != one["losses"][0]:
+        raise AssertionError(f"phase 17a: loss {sh['losses'][0]} vs {one['losses'][0]}")
+    grad_diff = _differ(one["grads"], sh["grads"])
+    for k, d in grad_diff.items():
+        mag = float(one["grads"][k].abs().max())
+        if k != "embed/tok" or d > TABLE_GRAD * mag:
+            raise AssertionError(f"phase 17a: gradient {k} differs by {d} (|g| {mag})")
+    lr = 3e-4
+    for i, (a, b) in enumerate(zip(one["losses"][1:], sh["losses"][1:])):
+        if abs(a - b) > 1e-5 * abs(a):
+            raise AssertionError(f"phase 17a: step {i + 1} loss {b} vs {a}")
+    param_diff = _differ(one["final"], sh["final"])
+    worst = max(param_diff.values(), default=0.0)
+    for k, d in param_diff.items():
+        if k != "embed/tok" or d > TABLE_PARAM_LR * lr:
+            raise AssertionError(f"phase 17a: parameter {k} differs by {d} after "
+                                 f"{SHARDED_STEPS} steps")
+    serve_diff = _differ(one["serve"], sh["serve"])
+    if serve_diff:
+        raise AssertionError(f"phase 17a: prefill/decode differ: {serve_diff}")
+    n = len(one["final"])
+    print(
+        f"phase 17a: {MODEL} full width, the sharded steps on a (1, 1) DeviceMesh "
+        f"over nccl (world 1) against the one-device steps, seed-0 weights, "
+        f"{SHARDED_STEPS} train steps of 8 x 512 tokens: step-1 loss "
+        f"{sh['losses'][0]:.6f} bit for bit; step-1 gradients bit for bit on "
+        f"{n - len(grad_diff)} of {n} leaves"
+        + "".join(f", {k} within {d:.3e}" for k, d in grad_diff.items())
+        + f"; losses after each step one device {one['losses'][1:]} sharded "
+        f"{sh['losses'][1:]}; after {SHARDED_STEPS} steps {n - len(param_diff)} "
+        f"of {n} parameter leaves bit-identical, the rest within {worst:.3e} "
+        f"(largest: {sorted(param_diff, key=param_diff.get)[-3:]}); prefill "
+        f"logits and caches and one decode step bit for bit; step seconds one "
+        f"device {[round(t, 3) for t in one['secs']]} sharded "
+        f"{[round(t, 3) for t in sh['secs']]}; peak over step 1 one device "
+        f"{one['peak'] / 1e9:.2f} GB sharded {sh['peak'] / 1e9:.2f} GB ({smi})"
+    )
+    return dict(peak=sh["peak"], cfg=cfg)
+
+
+def phase_dryrun_estimate(measured: dict, smi: str) -> None:
+    """17b: the dry-run's per-rank bytes of 17a's cell (qwen2-1.5b, 8 x 512,
+    a (1, 1) mesh, the train step) on meta DTensors under the fake backend,
+    argument + output + temp, printed beside 17a's measured peak."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        mode, arg, out, alias = lower_cell(
+            measured["cfg"], ShapeConfig("train_8x512", 512, 8, "train"), mesh
+        )
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    temp = max(0, mode.peak - (out - alias))
+    est = arg + out - alias + temp
+    print(
+        f"phase 17b: dry-run of 17a's cell ({MODEL}, 8 x 512, (1, 1), meta, "
+        f"{secs:.2f} s): argument {arg / 1e9:.3f} GB + output {out / 1e9:.3f} GB "
+        f"+ temp {temp / 1e9:.3f} GB = {est / 1e9:.3f} GB predicted; measured "
+        f"peak of 17a's sharded step {measured['peak'] / 1e9:.3f} GB "
+        f"(ratio {est / measured['peak']:.3f}; {smi})"
+    )
+
+
+def _dryrun_cell(cell) -> tuple:
+    """One 17c cell, in a process of its own (its own fake process group):
+    (``run_cell``'s result, its seconds)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    res = run_cell(*cell, probe_costs=False, verbose=False)
+    return res, time.perf_counter() - t0
+
+
+def phase_dryrun_cells(smi: str) -> None:
+    """17c: ``launch.dryrun.run_cell`` for one cell of each family on the
+    16x16 mesh (train_4k), and grok-1 on 2x16x16, on meta DTensors under
+    the fake backend (the card's host CPU; nothing is placed), each cell
+    in its own spawned process, side by side: per-rank bytes, FLOPs,
+    collective bytes and the dominant term per device on the H100's
+    data-sheet constants, and each cell's seconds."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(len(DRYRUN_CELLS)) as pool:
+        results = pool.map_async(_dryrun_cell, DRYRUN_CELLS).get(timeout=900)
+    for (arch, shape, _), (r, secs) in zip(DRYRUN_CELLS, results):
+        m, f = r["memory_analysis"], r["roofline"]
+        gb = (m["argument_size_in_bytes"] + m["output_size_in_bytes"]
+              - m["alias_size_in_bytes"] + m["temp_size_in_bytes"]) / 1e9
+        print(
+            f"phase 17c: {arch} x {shape} x {r['mesh']}: per rank {gb:.3f} GB "
+            f"(argument {m['argument_size_in_bytes'] / 1e9:.3f}, temp "
+            f"{m['temp_size_in_bytes'] / 1e9:.3f}), {f['flops']:.4e} FLOP, "
+            f"{f['bytes']:.4e} B moved, {f['collective_bytes']:.4e} collective "
+            f"B, dominant {f['dominant']} (compute {f['compute_s']:.4f} s, "
+            f"memory {f['memory_s']:.4f} s, collective {f['collective_s']:.4f} s "
+            f"on the H100 data sheet), useful {f['useful_fraction']:.3f}; "
+            f"{secs:.1f} s ({smi})"
+        )
+    print(
+        f"phase 17c: {len(DRYRUN_CELLS)} cells in {time.perf_counter() - t0:.1f} s "
+        f"wall, one process each"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3494,6 +3738,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_launcher()
+    # phase 17: the sharded steps and the dry-run (no kernel of the port runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured = phase_sharded_steps(dev, smi.splitlines()[0])
+    phase_dryrun_estimate(measured, smi.splitlines()[0])
+    phase_dryrun_cells(smi.splitlines()[0])
     # a kernel's launches through all its wrappers: the RMSNorm kernel as
     # the plain and the fused norm, the batched done-prefix kernel on
     # device tensors and on the engine's pinned ring state

@@ -35,11 +35,14 @@ Layout:
   optim/               AdamW, the cosine / WSD schedules, and the int8
                        pod all-reduce with error feedback
   launch/              build_steps (train, prefill, serve steps on one
-                       device, and with a mesh the reference's shardings
-                       and abstract_state), the production meshes (under
-                       torch's fake backend without a cluster), the meta
-                       input specs, and the training and serving launchers
-  train/               Trainer: data ring, step, checkpoints, restart
+                       device, or sharded on DTensors over a DeviceMesh
+                       by the reference's shardings; abstract_state), the
+                       production meshes (under torch's fake backend
+                       without a cluster), the meta input specs, the
+                       dry-run (every cell on meta DTensors), and the
+                       training and serving launchers
+  train/               Trainer: data ring, step (on a mesh too),
+                       checkpoints, restart
   checkpoint/          atomic, hashed checkpoints in the reference's layout
   data/, runtime/      the data pipeline, the straggler and failure
                        detectors and the elastic mesh plan (own copies)

@@ -48,9 +48,16 @@ __all__ = [
     "pack_bits_u32",
     "first_set_bits",
     "IMPLS",
+    "selects_kernel",
 ]
 
 IMPLS = ("auto", "cuda", "plain")
+
+
+def selects_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Whether an op asked for ``impl`` picks its kernel for ``t``: by
+    name, or ``"auto"`` on a CUDA tensor."""
+    return impl == "cuda" or (impl == "auto" and t.is_cuda)
 
 
 def _use_kernel(impl: str, t: torch.Tensor, *inputs) -> bool:
@@ -68,7 +75,7 @@ def _use_kernel(impl: str, t: torch.Tensor, *inputs) -> bool:
         )
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    kernel = impl == "cuda" or (impl == "auto" and t.is_cuda)
+    kernel = selects_kernel(impl, t)
     if kernel:
         _build.refuse_grad(f"impl={impl!r}", t, *inputs)
     if impl == "cuda" and not t.is_cuda:

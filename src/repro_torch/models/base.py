@@ -21,6 +21,7 @@ from torch.utils.checkpoint import (
 
 from ..compat import resolve_device
 from ..config import ArchConfig
+from ..sharding import is_dtensor, sharded_zeros
 from .layers import cdtype, label_logprobs, unembed
 from .spec import ParamSpec, abstract_params, init_params, spec_map
 
@@ -54,6 +55,8 @@ def _unstack(tree, n: int):
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
+    if is_dtensor(tree):  # DTensor's unbind fails on inference tensors
+        return [tree[i] for i in range(n)]
     return torch.unbind(tree, 0)
 
 
@@ -117,24 +120,26 @@ class LMBase(nn.Module):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         return checkpoint(fn, *args, use_reentrant=False)
 
-    def _label_logprobs(self, params, x, labels):
+    def _label_logprobs(self, params, x, labels, rules=None):
         """(logsumexp, label logit) of the fp32 logits of the hidden
         states ``x`` [B, S, d] at ``labels`` [B, S], the reference's
         ``unembed(...).astype(float32)`` then ``label_logprobs``."""
-        logits = unembed(params["embed"], x, self.cfg).float()
-        return label_logprobs(logits, labels, self.cfg.vocab)
+        logits = unembed(params["embed"], x, self.cfg, rules).float()
+        return label_logprobs(logits, labels, self.cfg.vocab, rules)
 
-    def _mean_ce(self, params, x, labels):
+    def _mean_ce(self, params, x, labels, rules=None):
         """The unmasked mean cross-entropy, as (ce, {"ce": ce}): the loss
         of the families without a z-loss or aux term (RWKV6, Zamba2,
         Whisper)."""
-        lse, ll = self._label_logprobs(params, x, labels)
+        lse, ll = self._label_logprobs(params, x, labels, rules)
         ce = (lse - ll).mean()
         return ce, {"ce": ce}
 
-    def init_cache(self, batch_size: int, seq_len: int, device):
-        """An empty cache of :meth:`cache_specs` on ``device``."""
+    def init_cache(self, batch_size: int, seq_len: int, device, rules=None):
+        """An empty cache of :meth:`cache_specs` on ``device``; with rules,
+        DTensors laid out by the specs' axes, each rank's zeros on
+        ``device``."""
         return spec_map(
-            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+            lambda s: sharded_zeros(rules, s.shape, s.axes, s.dtype, device),
             self.cache_specs(batch_size, seq_len),
         )

@@ -13,20 +13,21 @@ layers are stacked ``[L, ...]`` (VLM: ``[G, P - 1, ...]`` and
 ``[G, ...]``) leaves, as the reference keeps them for ``lax.scan``;
 here Python loops walk them in the reference's order.
 
-API (the reference's, minus ``rules``):
+API (the reference's; ``rules``, default None, lays the step out over
+a mesh, see ``layers``):
   param_specs() / init(generator, device) / prepare(params)
-  forward(params, tokens, image_embeds, collect_kv) -> (hidden, caches, aux)
-  loss(params, batch) -> (total, {"ce", "aux", "zloss"}), the batch
+  forward(params, tokens, image_embeds, collect_kv, rules) -> (hidden, caches, aux)
+  loss(params, batch, rules) -> (total, {"ce", "aux", "zloss"}), the batch
       carrying ``tokens``, ``labels`` and optionally ``loss_mask`` (and
       the VLM's ``image_embeds``); ``forward`` and ``loss`` run under
       grad mode where the caller has it on (training: the plain routes,
       each self layer under ``_remat``, as the reference's ``scan_stack``
       wraps them; the cross layers plainly, as its group scan does)
-  prefill(params, batch, max_seq) -> (cache, last_logits) under
+  prefill(params, batch, rules, max_seq) -> (cache, last_logits) under
       inference mode, the VLM's batch carrying ``image_embeds``
       [B, n_image_tokens, d]
-  decode_step(params, cache, tokens) -> (cache, logits)
-  cache_specs(batch_size, seq_len) / init_cache(batch_size, seq_len, device)
+  decode_step(params, cache, tokens, rules) -> (cache, logits)
+  cache_specs(batch_size, seq_len) / init_cache(batch_size, seq_len, device, rules)
 
 Differences from the reference, none of which changes a value:
 
@@ -61,6 +62,8 @@ from .layers import (
     attention_block,
     attention_decode_block,
     attn_specs,
+    cache_prefix,
+    cache_write,
     cast_tree,
     cdtype,
     cross_attention_decode,
@@ -75,6 +78,7 @@ from .layers import (
     rope_tables,
     unembed,
 )
+from ..sharding import constrain, local_device, serving_region, sharded_region
 from .spec import ParamSpec
 
 __all__ = ["DecoderLM"]
@@ -167,45 +171,47 @@ class DecoderLM(LMBase):
     # ------------------------------------------------------------------
     # forward (prefill)
     # ------------------------------------------------------------------
-    def _self_layer(self, lp, x, delta, tables):
+    def _self_layer(self, lp, x, delta, tables, rules=None):
         """One layer on the residual ``x`` and the previous layer's
         output ``delta`` (None before the first), not yet added: returns
         the residual, this layer's MLP (or MoE) output, not yet added,
         the K/V and the MoE aux loss (None for a dense MLP).  Each add
         goes into the norm after it (``apply_add_norm``)."""
         cfg = self.cfg
-        x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
-        a, kv = attention_block(lp["attn"], h, cfg, tables)
-        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
-        m, aux = self._ffn(lp, h2)
+        x, h = apply_add_norm(lp["ln1"], x, delta, cfg, rules)
+        a, kv = attention_block(lp["attn"], h, cfg, tables, rules=rules)
+        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg, rules)
+        m, aux = self._ffn(lp, h2, rules=rules)
         return x, self._scaled(m), kv, aux
 
-    def _ffn(self, lp, h, stats=None):
+    def _ffn(self, lp, h, stats=None, rules=None):
         """The layer's MLP, or its MoE block: (output, aux or None)."""
         if "moe" in lp:
-            return moe_block(lp["moe"], h, self.cfg, stats)
-        return mlp_block(lp["mlp"], h, self.cfg), None
+            return moe_block(lp["moe"], h, self.cfg, stats, rules)
+        return mlp_block(lp["mlp"], h, self.cfg, rules), None
 
-    def _cross_layer(self, lp, x, delta, memory):
+    def _cross_layer(self, lp, x, delta, memory, rules=None):
         """A VLM cross layer, as :meth:`_self_layer`: attention on the
         memory, non-causal and without RoPE; returns its K/V."""
         cfg = self.cfg
-        x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
-        a, kv = attention_block(lp["attn"], h, cfg, None, causal=False, memory=memory)
-        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
-        return x, self._scaled(mlp_block(lp["mlp"], h2, cfg)), kv
+        x, h = apply_add_norm(lp["ln1"], x, delta, cfg, rules)
+        a, kv = attention_block(
+            lp["attn"], h, cfg, None, causal=False, memory=memory, rules=rules
+        )
+        x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg, rules)
+        return x, self._scaled(mlp_block(lp["mlp"], h2, cfg, rules)), kv
 
     def _scaled(self, y):
         return y if self.res_scale == 1.0 else self.res_scale * y
 
-    def _forward(self, params, tokens, image_embeds, kv_out):
+    def _forward(self, params, tokens, image_embeds, kv_out, rules=None):
         """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
         None, each self layer's K/V go into ``kv_out["k"/"v"][idx, :, :S]``
         and each cross layer's into ``kv_out["cross_k"/"cross_v"][g]``.
         Returns the final hidden states and the sum of the layers' MoE
         aux losses (0 for a dense stack), in fp32."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(params["embed"], tokens, cfg, rules)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -213,18 +219,21 @@ class DecoderLM(LMBase):
         delta, auxes = None, []
         for kind, lp, idx in self._stack_walk(params):
             if kind == "self":
-                x, delta, kv, aux = self._remat(self._self_layer, lp, x, delta, tables)
+                x, delta, kv, aux = self._remat(
+                    self._self_layer, lp, x, delta, tables, rules
+                )
                 if aux is not None:
                     auxes.append(aux)
                 if kv_out is not None:
-                    kv_out["k"][idx][:, :S] = kv["k"]
-                    kv_out["v"][idx][:, :S] = kv["v"]
+                    cache_prefix(kv_out["k"][idx], kv["k"], rules)
+                    cache_prefix(kv_out["v"][idx], kv["v"], rules)
             else:
-                x, delta, kv = self._cross_layer(lp, x, delta, mem)
+                x, delta, kv = self._cross_layer(lp, x, delta, mem, rules)
                 if kv_out is not None:
-                    kv_out["cross_k"][idx] = kv["k"]
-                    kv_out["cross_v"][idx] = kv["v"]
-        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
+                    cross = ("batch", None, "cache_heads", None)
+                    kv_out["cross_k"][idx] = constrain(rules, kv["k"], *cross)
+                    kv_out["cross_v"][idx] = constrain(rules, kv["v"], *cross)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg, rules)
         if not auxes:
             return x, torch.zeros((), device=x.device)
         return x, torch.stack(auxes).sum()
@@ -239,17 +248,21 @@ class DecoderLM(LMBase):
             del caches["lengths"]
         return x, caches, aux
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, rules=None):
         """The training loss (the reference's ``transformer.py:221-234``),
         differentiable on the plain routes: masked mean cross-entropy over the
         real vocabulary, plus ``1e-4`` times the masked mean of
         logsumexp squared (z-loss) and ``0.01`` times the MoE aux loss.
         ``loss_mask`` defaults to ones.  Returns (total, {"ce", "aux",
         "zloss"}), fp32 scalars."""
-        x, _, aux = self.forward(
-            params, batch["tokens"], image_embeds=batch.get("image_embeds")
-        )
-        lse, ll = self._label_logprobs(params, x, batch["labels"])
+        with sharded_region(rules):
+            return self._loss(params, batch, rules)
+
+    def _loss(self, params, batch, rules):
+        params = cast_tree(params, cdtype(self.cfg))
+        x, aux = self._forward(params, batch["tokens"], batch.get("image_embeds"),
+                               None, rules)
+        lse, ll = self._label_logprobs(params, x, batch["labels"], rules)
         mask = batch.get("loss_mask")
         mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
         denom = mask.sum().clamp_min(1.0)
@@ -286,7 +299,7 @@ class DecoderLM(LMBase):
         }
 
     @torch.inference_mode()
-    def prefill(self, params, batch, max_seq: Optional[int] = None):
+    def prefill(self, params, batch, rules=None, max_seq: Optional[int] = None):
         """Full-sequence prefill; returns (cache padded to max_seq, last
         logits [B, V])."""
         tokens = batch["tokens"]
@@ -294,23 +307,28 @@ class DecoderLM(LMBase):
         max_seq = max_seq or S
         if S > max_seq:
             raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
-        params = cast_tree(params, cdtype(self.cfg))
-        cache = self.init_cache(B, max_seq, tokens.device)
-        x, _ = self._forward(params, tokens, batch.get("image_embeds"), cache)
-        cache["lengths"].fill_(S)
-        logits = unembed(params["embed"], x[:, -1:], self.cfg)
-        return cache, logits[:, 0]
+        with serving_region(rules):
+            params = cast_tree(params, cdtype(self.cfg))
+            cache = self.init_cache(B, max_seq, local_device(tokens), rules)
+            x, _ = self._forward(params, tokens, batch.get("image_embeds"), cache, rules)
+            cache["lengths"].fill_(S)
+            logits = unembed(params["embed"], x[:, -1:], self.cfg, rules)
+            return cache, logits[:, 0]
 
     @torch.inference_mode()
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, rules=None):
         """tokens [B, 1] -> (cache', logits [B, V]).  Appends one token,
         writing its K/V into ``cache`` in place; the VLM's cross cache is
         read over its full length."""
+        with serving_region(rules):
+            return self._decode_step(params, cache, tokens, rules)
+
+    def _decode_step(self, params, cache, tokens, rules):
         cfg = self.cfg
         lengths = cache["lengths"]
         k_all, v_all = cache["k"], cache["v"]
         B, S = k_all.shape[-4], k_all.shape[-3]
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(params["embed"], tokens, cfg, rules)
         new_len = lengths + 1
         # dynamic_update_slice clamps the start into the cache
         pos = lengths.clamp(0, S - 1).long()
@@ -318,22 +336,25 @@ class DecoderLM(LMBase):
         tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
         if self.period:
             n_img = cache["cross_k"].shape[2]
-            mem_len = torch.full((B,), n_img, dtype=torch.int32, device=lengths.device)
+            mem_len = torch.full_like(lengths, n_img)
         delta = None  # a block's output, added by the next norm
         for kind, lp, idx in self._stack_walk(params):
-            x, h = apply_add_norm(lp["ln1"], x, delta, cfg)
+            x, h = apply_add_norm(lp["ln1"], x, delta, cfg, rules)
             if kind == "self":
                 kc, vc = k_all[idx], v_all[idx]
-                k_new, v_new = decode_kv(lp["attn"], h, cfg, tables)
-                kc[rows, pos] = k_new[:, 0]
-                vc[rows, pos] = v_new[:, 0]
-                a = attention_decode_block(lp["attn"], h, kc, vc, new_len, cfg, tables)
+                k_new, v_new = decode_kv(lp["attn"], h, cfg, tables, rules)
+                cache_write(kc, pos, k_new[:, 0], rules, rows)
+                cache_write(vc, pos, v_new[:, 0], rules, rows)
+                a = attention_decode_block(
+                    lp["attn"], h, kc, vc, new_len, cfg, tables, rules
+                )
             else:
                 ck, cv = cache["cross_k"][idx], cache["cross_v"][idx]
-                a = cross_attention_decode(lp["attn"], h, ck, cv, mem_len, cfg)
-            x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg)
-            ffn = self._ffn(lp, h2, self.moe_stats)[0]  # the aux is dropped
+                a = cross_attention_decode(lp["attn"], h, ck, cv, mem_len, cfg, rules)
+            x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg, rules)
+            stats = None if rules else self.moe_stats
+            ffn = self._ffn(lp, h2, stats, rules)[0]  # the aux is dropped
             delta = self._scaled(ffn)
-        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
-        logits = unembed(params["embed"], x, cfg)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg, rules)
+        logits = unembed(params["embed"], x, cfg, rules)
         return dict(cache, lengths=new_len), logits[:, 0]

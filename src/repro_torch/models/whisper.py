@@ -47,6 +47,8 @@ from .layers import (
     attention_block,
     attention_decode_block,
     attn_specs,
+    cache_prefix,
+    cache_write,
     cast_tree,
     cdtype,
     cross_attention_decode,
@@ -59,6 +61,7 @@ from .layers import (
     rope_tables,
     unembed,
 )
+from ..sharding import constrain, local_device, serving_region, sharded_region
 from .spec import ParamSpec
 
 __all__ = ["EncDecLM"]
@@ -111,56 +114,61 @@ class EncDecLM(LMBase):
     # ------------------------------------------------------------------
     # encoder + decoder (prefill)
     # ------------------------------------------------------------------
-    def encode(self, params, audio_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, audio_embeds: torch.Tensor, rules=None) -> torch.Tensor:
         """audio_embeds [B, enc_len, d] -> the encoder output, in the
         compute dtype, with the weights as given (``forward`` rounds them
         first, as the reference's does); each layer under ``_remat``."""
         cfg = self.cfg
         dt = cdtype(cfg)
-        x = audio_embeds.to(dt) + params["enc_pos"].to(dt)
+        # the positions laid out as the frames are: their embed dim
+        # gathered over data (the reference adds them as stored)
+        pos = constrain(rules, params["enc_pos"].to(dt), "enc_seq", None)
+        x = audio_embeds.to(dt) + pos
         for lp in _unstack(params["enc_layers"], cfg.enc_layers):
-            x = self._remat(self._enc_layer, lp, x)
-        return apply_norm(params["enc_norm"], x, cfg)
+            x = self._remat(self._enc_layer, lp, x, rules)
+        return apply_norm(params["enc_norm"], x, cfg, rules)
 
-    def _enc_layer(self, lp, x):
+    def _enc_layer(self, lp, x, rules=None):
         cfg = self.cfg
-        h = apply_norm(lp["ln1"], x, cfg)
-        a, _ = attention_block(lp["attn"], h, cfg, None, causal=False)
+        h = apply_norm(lp["ln1"], x, cfg, rules)
+        a, _ = attention_block(lp["attn"], h, cfg, None, causal=False, rules=rules)
         x = x + a
-        return x + mlp_block(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+        h2 = apply_norm(lp["ln2"], x, cfg, rules)
+        return x + mlp_block(lp["mlp"], h2, cfg, rules)
 
-    def _dec_layer(self, lp, x, enc, tables):
+    def _dec_layer(self, lp, x, enc, tables, rules=None):
         """One decoder layer -> (x, self K/V, cross K/V)."""
         cfg = self.cfg
-        h = apply_norm(lp["ln1"], x, cfg)
-        a, kv = attention_block(lp["self_attn"], h, cfg, tables)
+        h = apply_norm(lp["ln1"], x, cfg, rules)
+        a, kv = attention_block(lp["self_attn"], h, cfg, tables, rules=rules)
         x = x + a
-        h2 = apply_norm(lp["ln2"], x, cfg)
+        h2 = apply_norm(lp["ln2"], x, cfg, rules)
         c, ckv = attention_block(
-            lp["cross_attn"], h2, cfg, None, causal=False, memory=enc
+            lp["cross_attn"], h2, cfg, None, causal=False, memory=enc, rules=rules
         )
         x = x + c
-        x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
+        x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg, rules), cfg, rules)
         return x, kv, ckv
 
-    def _forward(self, params, tokens, audio_embeds, kv_out):
+    def _forward(self, params, tokens, audio_embeds, kv_out, rules=None):
         """``params`` already through ``cast_tree``.  Unless ``kv_out`` is
         None, each layer's self K/V go into ``kv_out["k"/"v"][i, :, :S]``
         and its cross K/V into ``kv_out["cross_k"/"cross_v"][i]``."""
         cfg = self.cfg
-        enc = self.encode(params, audio_embeds)
-        x = embed_tokens(params["embed"], tokens, cfg)
+        enc = self.encode(params, audio_embeds, rules)
+        x = embed_tokens(params["embed"], tokens, cfg, rules)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        cross = ("batch", None, "cache_heads", None)
         for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
-            x, kv, ckv = self._remat(self._dec_layer, lp, x, enc, tables)
+            x, kv, ckv = self._remat(self._dec_layer, lp, x, enc, tables, rules)
             if kv_out is not None:
-                kv_out["k"][i, :, :S] = kv["k"]
-                kv_out["v"][i, :, :S] = kv["v"]
-                kv_out["cross_k"][i] = ckv["k"]
-                kv_out["cross_v"][i] = ckv["v"]
-        return apply_norm(params["final_norm"], x, cfg)
+                cache_prefix(kv_out["k"][i], kv["k"], rules)
+                cache_prefix(kv_out["v"][i], kv["v"], rules)
+                kv_out["cross_k"][i] = constrain(rules, ckv["k"], *cross)
+                kv_out["cross_v"][i] = constrain(rules, ckv["v"], *cross)
+        return apply_norm(params["final_norm"], x, cfg, rules)
 
     def forward(self, params, tokens, audio_embeds, collect_kv: bool = False):
         """tokens [B, S], audio_embeds [B, enc_len, d] -> (hidden [B, S, d],
@@ -172,11 +180,13 @@ class EncDecLM(LMBase):
             return x, None
         return x, tuple(caches[k] for k in ("k", "v", "cross_k", "cross_v"))
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, rules=None):
         """The mean cross-entropy of ``batch["labels"]`` (the reference's
         ``whisper.py:136-142``): (ce, {"ce": ce})."""
-        x, _ = self.forward(params, batch["tokens"], batch["audio_embeds"])
-        return self._mean_ce(params, x, batch["labels"])
+        with sharded_region(rules):
+            params = cast_tree(params, cdtype(self.cfg))
+            x = self._forward(params, batch["tokens"], batch["audio_embeds"], None, rules)
+            return self._mean_ce(params, x, batch["labels"], rules)
 
     # ------------------------------------------------------------------
     # serving: prefill + decode
@@ -198,7 +208,7 @@ class EncDecLM(LMBase):
         }
 
     @torch.inference_mode()
-    def prefill(self, params, batch, max_seq: Optional[int] = None):
+    def prefill(self, params, batch, rules=None, max_seq: Optional[int] = None):
         """Encoder + full-sequence decoder; returns (cache, its self K/V
         padded to max_seq, and the last logits [B, V])."""
         tokens = batch["tokens"]
@@ -206,45 +216,51 @@ class EncDecLM(LMBase):
         max_seq = max_seq or S
         if S > max_seq:
             raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
-        params = cast_tree(params, cdtype(self.cfg))
-        cache = self.init_cache(B, max_seq, tokens.device)
-        x = self._forward(params, tokens, batch["audio_embeds"], cache)
-        cache["lengths"].fill_(S)
-        logits = unembed(params["embed"], x[:, -1:], self.cfg)
-        return cache, logits[:, 0]
+        with serving_region(rules):
+            params = cast_tree(params, cdtype(self.cfg))
+            cache = self.init_cache(B, max_seq, local_device(tokens), rules)
+            x = self._forward(params, tokens, batch["audio_embeds"], cache, rules)
+            cache["lengths"].fill_(S)
+            logits = unembed(params["embed"], x[:, -1:], self.cfg, rules)
+            return cache, logits[:, 0]
 
     @torch.inference_mode()
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, rules=None):
         """tokens [B, 1] -> (cache', logits [B, V]).  Appends one token,
         writing its self K/V into ``cache`` in place; the cross cache is
         read over its full length."""
+        with serving_region(rules):
+            return self._decode_step(params, cache, tokens, rules)
+
+    def _decode_step(self, params, cache, tokens, rules):
         cfg = self.cfg
         lengths = cache["lengths"]
         k_all, v_all = cache["k"], cache["v"]
         B, S = k_all.shape[1], k_all.shape[2]
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(params["embed"], tokens, cfg, rules)
         new_len = lengths + 1
         # dynamic_update_slice clamps the start into the cache
         pos = lengths.clamp(0, S - 1).long()
         rows = torch.arange(B, device=lengths.device)
         tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
         enc_len = cache["cross_k"].shape[2]
-        mem_len = torch.full((B,), enc_len, dtype=torch.int32, device=lengths.device)
+        mem_len = torch.full_like(lengths, enc_len)
         for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
             kc, vc = k_all[i], v_all[i]
-            h = apply_norm(lp["ln1"], x, cfg)
-            k_new, v_new = decode_kv(lp["self_attn"], h, cfg, tables)
-            kc[rows, pos] = k_new[:, 0]
-            vc[rows, pos] = v_new[:, 0]
+            h = apply_norm(lp["ln1"], x, cfg, rules)
+            k_new, v_new = decode_kv(lp["self_attn"], h, cfg, tables, rules)
+            cache_write(kc, pos, k_new[:, 0], rules, rows)
+            cache_write(vc, pos, v_new[:, 0], rules, rows)
             x = x + attention_decode_block(
-                lp["self_attn"], h, kc, vc, new_len, cfg, tables
+                lp["self_attn"], h, kc, vc, new_len, cfg, tables, rules
             )
-            h2 = apply_norm(lp["ln2"], x, cfg)
+            h2 = apply_norm(lp["ln2"], x, cfg, rules)
             x = x + cross_attention_decode(
                 lp["cross_attn"], h2, cache["cross_k"][i], cache["cross_v"][i],
-                mem_len, cfg,
+                mem_len, cfg, rules,
             )
-            x = x + mlp_block(lp["mlp"], apply_norm(lp["ln3"], x, cfg), cfg)
-        x = apply_norm(params["final_norm"], x, cfg)
-        logits = unembed(params["embed"], x, cfg)
+            h3 = apply_norm(lp["ln3"], x, cfg, rules)
+            x = x + mlp_block(lp["mlp"], h3, cfg, rules)
+        x = apply_norm(params["final_norm"], x, cfg, rules)
+        logits = unembed(params["embed"], x, cfg, rules)
         return dict(cache, lengths=new_len), logits[:, 0]

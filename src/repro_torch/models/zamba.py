@@ -30,6 +30,15 @@ launch on the card); the residual is summed eagerly only where the
 shared block concatenates it with the embedding, and ``x + a`` stays
 eager there too.  The first Mamba norm and the shared block's two run
 plain.
+
+With ``rules`` (``layers``' docstring) the weights go through
+``use_weight`` at the reference's sites, and the shared block's LoRA
+adapters too, gathered over ``data`` at use (the reference leaves their
+layout to GSPMD); the SSD scan runs under ``local`` over each rank's
+(batch, ``ssm_heads``) shard, and the shared block's attention as
+``layers``' blocks run it.  Its one set of weights serves every
+invocation, each with its own adapters and KV cache, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -43,11 +52,17 @@ from ..config import ArchConfig
 from ..kernels import ops
 from .base import LMBase, _stack, _unstack
 from .layers import (
+    _KV,
+    _Q,
+    _attend,
+    _decode_attend,
     _out,
     _proj,
     apply_add_norm,
     apply_norm,
     apply_rope,
+    cache_prefix,
+    cache_write,
     cast_tree,
     cdtype,
     embed_specs,
@@ -57,9 +72,21 @@ from .layers import (
     rope_tables,
     unembed,
 )
+from ..sharding import (
+    constrain,
+    local,
+    local_device,
+    serving_region,
+    sharded_region,
+    sharded_zeros,
+    use_weight,
+)
 from .spec import ParamSpec
 
 __all__ = ["ZambaLM"]
+
+_SSM = ("batch", "ssm_heads", None, None)  # [B, H, P, N]
+_CONV = ("batch", None, "ssm_inner")  # [B, K - 1, conv_dim]
 
 _CONV_K = 4  # mamba short-conv window
 
@@ -144,13 +171,13 @@ class ZambaLM(LMBase):
     # ------------------------------------------------------------------
     # Mamba2 block
     # ------------------------------------------------------------------
-    def _mamba_proj(self, lp, x, dt):
-        zxbcdt = x @ lp["in_proj"].to(dt)
+    def _mamba_proj(self, lp, x, dt, rules=None):
+        zxbcdt = x @ use_weight(rules, lp["in_proj"], (None, "ssm_inner"), dt)
         d_in, cd = self.d_in, self.conv_dim
         z, conv_in = zxbcdt[..., :d_in], zxbcdt[..., d_in : d_in + cd]
         return z, conv_in, zxbcdt[..., d_in + cd :]
 
-    def _mamba_post(self, lp, conv_out, dt_raw, z, ssm_state, dt):
+    def _mamba_post(self, lp, conv_out, dt_raw, z, ssm_state, dt, rules=None):
         cfg = self.cfg
         B_, T = conv_out.shape[0], conv_out.shape[1]
         d_in, G, N, H, P = self.d_in, self.G, self.N, self.H, self.P
@@ -159,7 +186,14 @@ class ZambaLM(LMBase):
         Cm = conv_out[..., d_in + G * N :].reshape(B_, T, G, N)
         dtv = F.softplus(dt_raw.float() + lp["dt_bias"].float())
         A = -torch.exp(lp["A_log"].float())
-        y, new_state = ops.ssd(
+        heads, bc = ("batch", None, "ssm_heads", None), ("batch", None, None, None)
+        scan = local(
+            rules,
+            lambda *a: ops.ssd(*a, chunk=cfg.ssd_chunk, impl=ops_impl(cfg)),
+            [heads, _SSM],
+            (heads, heads[:3], ("ssm_heads",), bc, bc, ("ssm_heads",), _SSM),
+        )
+        y, new_state = scan(
             xc.reshape(B_, T, H, P),
             dtv,
             A,
@@ -167,14 +201,12 @@ class ZambaLM(LMBase):
             Cm,
             lp["D"].float(),
             ssm_state,
-            chunk=cfg.ssd_chunk,
-            impl=ops_impl(cfg),
         )
         # gated RMSNorm (the mamba2 norm), fp32
         yf = y.reshape(B_, T, d_in).float()
         yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
         y = (yf * lp["gn_w"].float()).to(dt) * F.silu(z)
-        return y @ lp["out_proj"].to(dt), new_state
+        return y @ use_weight(rules, lp["out_proj"], ("ssm_inner", None), dt), new_state
 
     def _conv(self, lp, window, T, dt):
         """Depthwise causal conv of width K over ``window`` [B, T+K-1, c]."""
@@ -182,84 +214,94 @@ class ZambaLM(LMBase):
         out = sum(window[:, i : i + T] * w[i] for i in range(_CONV_K))
         return F.silu(out + lp["conv_b"].to(dt))
 
-    def _mamba_block(self, lp, x, delta, dt):
+    def _mamba_block(self, lp, x, delta, dt, rules=None):
         """Full-sequence Mamba block on the residual ``x`` plus the
         previous block's output ``delta`` (None: nothing pending), the
         add folded into the block's norm -> (the residual x + delta, the
         block's output, not yet added, ssm state, conv state of the last
         K - 1 conv inputs)."""
-        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg)
-        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
+        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg, rules)
+        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt, rules)
         B_, T = x.shape[0], x.shape[1]
-        ssm0 = torch.zeros(B_, self.H, self.P, self.N, device=x.device)
-        pad = conv_in.new_zeros(B_, _CONV_K - 1, self.conv_dim)
-        ci = torch.cat([pad, conv_in], dim=1)
+        dev = local_device(x)
+        ssm0 = sharded_zeros(rules, (B_, self.H, self.P, self.N), _SSM,
+                             torch.float32, dev)
+        pad = sharded_zeros(rules, (B_, _CONV_K - 1, self.conv_dim), _CONV,
+                            conv_in.dtype, dev)
+        ci = torch.cat([pad, constrain(rules, conv_in, *_CONV)], dim=1)
         conv_out = self._conv(lp, ci, T, dt)
-        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm0, dt)
+        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm0, dt, rules)
         return x, out, new_ssm, ci[:, -(_CONV_K - 1) :]
 
-    def _mamba_step(self, lp, x, delta, conv_state, ssm_state, dt):
+    def _mamba_step(self, lp, x, delta, conv_state, ssm_state, dt, rules=None):
         """Single-token Mamba block on ``x + delta``, as
         :meth:`_mamba_block`: -> (the residual, the block's output, not
         yet added, conv state, ssm state).  conv_state: [B, K-1,
         conv_dim]."""
-        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg)
-        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt)
+        x, h = apply_add_norm(lp["ln"], x, delta, self.cfg, rules)
+        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt, rules)
+        conv_in = constrain(rules, conv_in, *_CONV)
         window = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
         conv_out = self._conv(lp, window, 1, dt)
-        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm_state, dt)
+        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm_state, dt, rules)
         return x, out, window[:, 1:], new_ssm
 
     # ------------------------------------------------------------------
     # Shared attention block
     # ------------------------------------------------------------------
-    def _shared_in(self, sp, lora, x, emb0, dt):
+    def _shared_in(self, sp, lora, x, emb0, dt, rules=None):
         """The block's input ``u = [x, emb0]``, its ln1 output h, and q
         (with the invocation's LoRA), k, v before RoPE."""
         u = torch.cat([x, emb0], dim=-1)
-        h = apply_norm(sp["ln1"], u, self.cfg)
-        q = _proj(h, sp["wq"], dt)
-        q = q + ((h @ lora["q_a"].to(dt)) @ lora["q_b"].to(dt)).reshape(q.shape)
-        return u, q, _proj(h, sp["wk"], dt), _proj(h, sp["wv"], dt)
+        h = apply_norm(sp["ln1"], u, self.cfg, rules)
+        q = _proj(h, sp["wq"], dt, rules, _Q)
+        qa = use_weight(rules, lora["q_a"], (None, None), dt)
+        q = q + ((h @ qa) @ use_weight(rules, lora["q_b"], (None, "heads"), dt)).reshape(
+            q.shape
+        )
+        k, v = _proj(h, sp["wk"], dt, rules, _KV), _proj(h, sp["wv"], dt, rules, _KV)
+        return u, q, k, v
 
-    def _shared_mlp(self, sp, lora, u, dt):
-        h2 = apply_norm(sp["ln2"], u, self.cfg)
-        m = h2 @ sp["w1"].to(dt)
-        m = m + (h2 @ lora["m_a"].to(dt)) @ lora["m_b"].to(dt)
-        m = F.silu(m) * (h2 @ sp["w3"].to(dt))
-        return m @ sp["w2"].to(dt)
+    def _shared_mlp(self, sp, lora, u, dt, rules=None):
+        h2 = apply_norm(sp["ln2"], u, self.cfg, rules)
+        m = h2 @ use_weight(rules, sp["w1"], (None, "mlp"), dt)
+        ma = use_weight(rules, lora["m_a"], (None, None), dt)
+        m = m + (h2 @ ma) @ use_weight(rules, lora["m_b"], (None, "mlp"), dt)
+        m = F.silu(m) * (h2 @ use_weight(rules, sp["w3"], (None, "mlp"), dt))
+        return m @ use_weight(rules, sp["w2"], ("mlp", None), dt)
 
-    def _shared_block(self, sp, lora, x, emb0, dt, tables):
+    def _shared_block(self, sp, lora, x, emb0, dt, tables, rules=None):
         """-> (x + a, the MLP's output, not yet added, k, v): the
         reference's ``x + a + mlp`` with its second add left to the
         next norm."""
-        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt)
+        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt, rules)
         q, k = apply_rope(q, tables), apply_rope(k, tables)
-        o = ops.attention(q, k, v, causal=True, impl=ops_impl(self.cfg))
-        a = _out(o, sp["wo"], dt)
-        return x + a, self._shared_mlp(sp, lora, u, dt), k, v
+        o = _attend(q, k, v, True, self.cfg, rules)
+        a = _out(o, sp["wo"], dt, rules)
+        return x + a, self._shared_mlp(sp, lora, u, dt, rules), k, v
 
-    def _shared_step(self, sp, lora, x, emb0, kc, vc, lengths, dt, tables):
+    def _shared_step(self, sp, lora, x, emb0, kc, vc, lengths, dt, tables,
+                     rules=None):
         """One token; writes its K/V into ``kc``/``vc`` at ``lengths``
         (clamped into the cache)."""
-        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt)
+        u, q, k, v = self._shared_in(sp, lora, x, emb0, dt, rules)
         q, k = apply_rope(q, tables), apply_rope(k, tables)
         B_, S = kc.shape[0], kc.shape[1]
         pos = lengths.clamp(0, S - 1).long()
-        rows = torch.arange(B_, device=lengths.device)
-        kc[rows, pos] = k[:, 0]
-        vc[rows, pos] = v[:, 0]
-        o = ops.decode_attention(q[:, 0], kc, vc, lengths + 1, impl=ops_impl(self.cfg))
-        a = _out(o, sp["wo"], dt)[:, None, :]
-        return x + a, self._shared_mlp(sp, lora, u, dt)
+        rows = None if rules else torch.arange(B_, device=lengths.device)
+        cache_write(kc, pos, k[:, 0], rules, rows)
+        cache_write(vc, pos, v[:, 0], rules, rows)
+        o = _decode_attend(q[:, 0], kc, vc, lengths + 1, self.cfg, rules)
+        a = _out(o, sp["wo"], dt, rules)[:, None, :]
+        return x + a, self._shared_mlp(sp, lora, u, dt, rules)
 
     # ------------------------------------------------------------------
-    def _forward(self, params, tokens, cache=None):
+    def _forward(self, params, tokens, cache=None, rules=None):
         """``params`` already through ``cast_tree``.  With ``cache`` (of
         :meth:`cache_specs`), the states and K/V are written into it."""
         cfg = self.cfg
         dt = cdtype(cfg)
-        emb0 = embed_tokens(params["embed"], tokens, cfg)
+        emb0 = embed_tokens(params["embed"], tokens, cfg, rules)
         x = emb0
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
@@ -269,24 +311,26 @@ class ZambaLM(LMBase):
         delta = None  # a block's output, added by the next norm
         for g, (gp, lora) in enumerate(zip(groups, loras)):
             for j, lp in enumerate(_unstack(gp, self.period)):
-                x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt)
+                x, delta, ssm, conv = self._remat(
+                    self._mamba_block, lp, x, delta, dt, rules
+                )
                 if cache is not None:
-                    cache["ssm_g"][g, j] = ssm
-                    cache["conv_g"][g, j] = conv
+                    cache["ssm_g"][g, j] = constrain(rules, ssm, *_SSM)
+                    cache["conv_g"][g, j] = constrain(rules, conv, *_CONV)
             # the shared block reads the sum through its concatenation
             x = x + delta
             x, delta, k, v = self._shared_block(
-                params["shared"], lora, x, emb0, dt, tables
+                params["shared"], lora, x, emb0, dt, tables, rules
             )
             if cache is not None:
-                cache["attn_k"][g, :, :S] = k
-                cache["attn_v"][g, :, :S] = v
+                cache_prefix(cache["attn_k"][g], k, rules)
+                cache_prefix(cache["attn_v"][g], v, rules)
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
-            x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt)
+            x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt, rules)
             if cache is not None:
-                cache["ssm_x"][j] = ssm
-                cache["conv_x"][j] = conv
-        return apply_add_norm(params["final_norm"], x, delta, cfg)[1]
+                cache["ssm_x"][j] = constrain(rules, ssm, *_SSM)
+                cache["conv_x"][j] = constrain(rules, conv, *_CONV)
+        return apply_add_norm(params["final_norm"], x, delta, cfg, rules)[1]
 
     def forward(self, params, tokens, collect_state: bool = False):
         """tokens [B, S] -> (hidden [B, S, d], (ssm, conv, k, v) of the
@@ -301,13 +345,15 @@ class ZambaLM(LMBase):
         ys_x = (cache["ssm_x"], cache["conv_x"]) if self.n_extra else None
         return x, ys, ys_x
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, rules=None):
         """The mean cross-entropy of ``batch["labels"]`` (the reference's
         ``zamba.py:311-317``): (ce, {"ce": ce}); each Mamba block under
         ``_remat`` and the shared block plainly, as the reference's
         scans run them."""
-        x, _, _ = self.forward(params, batch["tokens"])
-        return self._mean_ce(params, x, batch["labels"])
+        with sharded_region(rules):
+            params = cast_tree(params, cdtype(self.cfg))
+            x = self._forward(params, batch["tokens"], rules=rules)
+            return self._mean_ce(params, x, batch["labels"], rules)
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch_size: int, seq_len: int):
@@ -354,7 +400,7 @@ class ZambaLM(LMBase):
         return specs
 
     @torch.inference_mode()
-    def prefill(self, params, batch, max_seq: Optional[int] = None):
+    def prefill(self, params, batch, rules=None, max_seq: Optional[int] = None):
         """Full-sequence prefill -> (cache with K/V padded to max_seq,
         last logits [B, V])."""
         tokens = batch["tokens"]
@@ -362,20 +408,25 @@ class ZambaLM(LMBase):
         max_seq = max_seq or S
         if S > max_seq:
             raise ValueError(f"prompt of {S} tokens past max_seq={max_seq}")
-        params = cast_tree(params, cdtype(self.cfg))
-        cache = self.init_cache(B, max_seq, tokens.device)
-        x = self._forward(params, tokens, cache=cache)
-        cache["lengths"].fill_(S)
-        logits = unembed(params["embed"], x[:, -1:], self.cfg)
-        return cache, logits[:, 0]
+        with serving_region(rules):
+            params = cast_tree(params, cdtype(self.cfg))
+            cache = self.init_cache(B, max_seq, local_device(tokens), rules)
+            x = self._forward(params, tokens, cache=cache, rules=rules)
+            cache["lengths"].fill_(S)
+            logits = unembed(params["embed"], x[:, -1:], self.cfg, rules)
+            return cache, logits[:, 0]
 
     @torch.inference_mode()
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, rules=None):
         """tokens [B, 1] -> (cache', logits [B, V]), states and K/V
         written in place."""
+        with serving_region(rules):
+            return self._decode_step(params, cache, tokens, rules)
+
+    def _decode_step(self, params, cache, tokens, rules):
         cfg = self.cfg
         dt = cdtype(cfg)
-        emb0 = embed_tokens(params["embed"], tokens, cfg)
+        emb0 = embed_tokens(params["embed"], tokens, cfg, rules)
         x = emb0
         lengths = cache["lengths"]
         tables = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
@@ -386,10 +437,10 @@ class ZambaLM(LMBase):
         for g, (gp, lora) in enumerate(zip(groups, loras)):
             for j, lp in enumerate(_unstack(gp, self.period)):
                 x, delta, conv, ssm = self._mamba_step(
-                    lp, x, delta, conv_g[g, j], ssm_g[g, j], dt
+                    lp, x, delta, conv_g[g, j], ssm_g[g, j], dt, rules
                 )
-                ssm_g[g, j] = ssm
-                conv_g[g, j] = conv
+                ssm_g[g, j] = constrain(rules, ssm, *_SSM)
+                conv_g[g, j] = constrain(rules, conv, *_CONV)
             x = x + delta  # read through the shared block's concatenation
             x, delta = self._shared_step(
                 params["shared"],
@@ -401,12 +452,13 @@ class ZambaLM(LMBase):
                 lengths,
                 dt,
                 tables,
+                rules,
             )
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
             conv, ssm = cache["conv_x"][j], cache["ssm_x"][j]
-            x, delta, conv, ssm = self._mamba_step(lp, x, delta, conv, ssm, dt)
-            cache["ssm_x"][j] = ssm
-            cache["conv_x"][j] = conv
-        _, x = apply_add_norm(params["final_norm"], x, delta, cfg)
-        logits = unembed(params["embed"], x, cfg)
+            x, delta, conv, ssm = self._mamba_step(lp, x, delta, conv, ssm, dt, rules)
+            cache["ssm_x"][j] = constrain(rules, ssm, *_SSM)
+            cache["conv_x"][j] = constrain(rules, conv, *_CONV)
+        _, x = apply_add_norm(params["final_norm"], x, delta, cfg, rules)
+        logits = unembed(params["embed"], x, cfg, rules)
         return dict(cache, lengths=lengths + 1), logits[:, 0]

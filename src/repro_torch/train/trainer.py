@@ -7,9 +7,15 @@ commit atomically off the critical path, the straggler detector watches
 step times, and ``run`` resumes from (checkpoint step, stream position)
 after a crash.
 
-On one device: ``device=`` takes the reference's ``mesh=`` place
-(default: the card; ``device="cpu"`` runs the plain versions on the
-CPU).  The trainer runs the configuration it is given: on the card a
+``device=`` names where the state lives (default: the card;
+``device="cpu"`` runs the plain versions on the CPU).  ``mesh=`` (a
+``DeviceMesh`` over the ranks of the running process group, as the
+reference's ``Trainer(cfg, tcfg, mesh)`` takes it) runs the sharded
+train step: the state is initialised on the device and distributed
+onto the bundle's shardings, every rank draws the same batches, a
+restart restores onto the shardings, and rank 0 alone writes the
+checkpoints, gathered whole.  Without a mesh the trainer runs on one
+device.  The trainer runs the configuration it is given: on the card a
 config whose ``attention_impl`` leaves the kernels on (``"auto"``)
 raises from the kernels' grad guard at the first step, and
 ``launch/train.py`` names the plain routes.
@@ -27,7 +33,7 @@ from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..compat import resolve_device
 from ..config import ArchConfig
 from ..data import CorecDataPipeline, SyntheticLMSource
-from ..launch.steps import build_steps
+from ..launch.steps import build_steps, gather_state, place_state
 from ..optim import AdamW, cosine_schedule, wsd_schedule
 from ..runtime.straggler import StragglerDetector
 from ..tree import tree_map
@@ -52,10 +58,11 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, device=None):
+    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, device=None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         sched = (
             wsd_schedule(tcfg.lr, tcfg.warmup, tcfg.steps // 2, tcfg.steps // 4)
             if tcfg.schedule == "wsd"
@@ -67,11 +74,14 @@ class Trainer:
             optimizer=AdamW(),
             microbatches=tcfg.microbatches,
             device=self.device,
+            mesh=mesh,
         )
         self.source = SyntheticLMSource(cfg.vocab, tcfg.batch, tcfg.seq, tcfg.seed)
         self.ckpt = (
             AsyncCheckpointer(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
         )
+        # on a mesh every rank restores, rank 0 alone writes
+        self._writes = mesh is None or torch.distributed.get_rank() == 0
         self.straggler = StragglerDetector()
         self.metrics_log: List[Dict] = []
 
@@ -86,13 +96,21 @@ class Trainer:
             generator = torch.Generator().manual_seed(0)
         params = self.bundle.model.init(generator, device=generator.device)
         params = tree_map(lambda p: p.to(self.device), params)
-        return params, self.bundle.optimizer.init(params)
+        opt = self.bundle.optimizer.init(params)
+        if self.mesh is not None:
+            return place_state(self.bundle, params, opt)
+        return params, opt
 
     def _maybe_restore(self):
         if self.ckpt is None or latest_step(self.ckpt.directory) is None:
             return None
         params, opt = self.init_state()
-        (params, opt), extra = restore_checkpoint(self.ckpt.directory, (params, opt))
+        sh = None
+        if self.mesh is not None:
+            sh = (self.bundle.param_shardings, self.bundle.opt_shardings)
+        (params, opt), extra = restore_checkpoint(
+            self.ckpt.directory, (params, opt), shardings=sh
+        )
         return params, opt, extra.get("stream_position", 0), extra["step"]
 
     # ------------------------------------------------------------------
@@ -132,11 +150,14 @@ class Trainer:
                     self.ckpt is not None
                     and (step + 1) % self.tcfg.checkpoint_every == 0
                 ):
-                    self.ckpt.save(
-                        step + 1,
-                        (params, opt),
-                        extra={"stream_position": pipe.position()},
-                    )
+                    state = (params, opt)
+                    if self.mesh is not None:  # a collective: every rank
+                        state = gather_state(state)
+                    if self._writes:
+                        self.ckpt.save(
+                            step + 1, state,
+                            extra={"stream_position": pipe.position()},
+                        )
                 if crash_at is not None and step + 1 >= crash_at:
                     raise RuntimeError(f"injected crash at step {step + 1}")
         finally:
