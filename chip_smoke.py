@@ -198,8 +198,37 @@ Phases, each raising on failure (nothing is caught, no CPU fallback):
    meta DTensors under the fake backend, one process a cell: bytes,
    FLOPs, collective bytes and the dominant term per rank on the H100's
    data-sheet constants.
+18. the DES and threaded planes of ``repro_torch.core`` (host planes; no
+   tensor), held against the lane engine on the card: 18a
+   ``benchmarks/policy_sweep.py``'s grid uncut (40,000 UDP packets at 45
+   pps over 256 flows, deschedule_prob 5e-4; 40,000 MAWI-mix packets at
+   35 pps, 5e-3; 96 TCP flows of 7 packets 1.5 us apart) through the
+   port's ``simulate_forwarder`` / ``simulate_tcp`` for every registered
+   policy on 4 workers, every packet delivered exactly once and every
+   flow done (sojourn p50/p99, reorder %, FCT p50/p99), and every entry of
+   ``tests/golden/des_parity.json`` reproduced (integers and order CRCs
+   exact, floats within 1e-9), as jobs in spawned processes; 18b the lane
+   engine through ``run_sweep(device=cuda)`` against the port's DES on
+   the reference's setups and bands, every policy: the forwarder
+   (``tests/test_jaxplane.py:210``: means of p50 within 15%, of p99
+   within 35%), the faulted forwarder (``tests/test_fault_jax.py:206``:
+   the bands on corec and hybrid, the other lease policies drain on both
+   planes, locked strands on both), TCP (``tests/test_tcpjax.py:127``)
+   and serving (``tests/test_servingjax.py:40-97``: SLO attainment within
+   15%, p99 within 35%), one claim-check or words-route launch a sweep;
+   18c the threaded plane on real threads: the threaded half of
+   ``benchmarks/scalability.py`` (4,000 items, l3fwd and ipsec, scaleout
+   x 1 and corec x 1, 2, 4, ring 1,024, max_batch 32), every policy on 4
+   threads, a crash mid-claim per lease policy draining through lease
+   reclamation, locked with a crashed holder reported wedged within its
+   1 s drain timeout, and the reference's scaleout/stall@pre stranding
+   (items/s, sojourn p50/p99); 18d ``protocol_sim._word_run`` against
+   the batched done-prefix kernel on random packed bitmaps of 64-4,096
+   bits, every start at a word edge +-1, limits 0..size, exactly.  Every
+   host time beside the card's name and power limit and the host CPU.
 
-Prints one JSON line of per-kernel numbers, then, as the last line,
+Prints the whole script's seconds, one JSON line of per-kernel numbers,
+then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
 """
 
@@ -208,7 +237,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -222,7 +253,35 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import SweepRequest, lane_grid, run_sweep  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    FaultSpec,
+    ForwarderConfig,
+    Item,
+    ServingSimConfig,
+    SweepRequest,
+    TcpSimConfig,
+    WorkerPool,
+    available_policies,
+    get_spec,
+    lane_grid,
+    make_policy,
+    make_queue,
+    mawi_mix,
+    measure_reordering,
+    per_flow_reordering,
+    rss_hash,
+    run_sweep,
+    simulate_forwarder,
+    simulate_protocol,
+    simulate_scale_out,
+    simulate_scale_up,
+    simulate_serving_des,
+    simulate_tcp,
+    udp_stream,
+)
+from repro_torch.core.des import DesItem, EventLoop, WorkerPlane  # noqa: E402
+from repro_torch.core.protocol_sim import _word_run  # noqa: E402
+from repro_torch.core.torchplane import rss_hash32  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -3652,10 +3711,765 @@ def phase_dryrun_cells(smi: str) -> None:
     )
 
 
+# ----------------------------------------------------------------------
+# phase 18: the DES and threaded planes (host), held against the lane engine
+# ----------------------------------------------------------------------
+#: benchmarks/policy_sweep.py's grid, uncut: 40,000 packets per forwarder
+#: workload (generator arguments, deschedule_prob) on N_WORKERS workers,
+#: and 96 TCP flows of 7 packets, 1.5 us apart
+PSWEEP_PACKETS = 40_000
+PSWEEP_FORWARDER = {
+    "udp": (dict(rate_pps=45.0, size=64, seed=3, n_flows=256), 5e-4),
+    "mawi": (dict(mean_rate_pps=35.0, seed=22), 5e-3),
+}
+PSWEEP_FWD_SEED = 7
+PSWEEP_TCP_FLOWS = 96
+PSWEEP_TCP = dict(seed=17, service_mean=3.0, link_pps=2.0, deschedule_prob=5e-3)
+
+#: tests/golden/des_parity.json, as tests/test_des_parity.py holds it:
+#: integers (and the order CRCs) exact, floats to 1e-9 relative
+GOLDEN_PATH = Path(__file__).resolve().parent / "tests" / "golden" / "des_parity.json"
+GOLDEN_RTOL = 1e-9
+
+#: the cross-plane setups and bands of the reference's tests:
+#: test_jaxplane.py:210 (forwarder), test_fault_jax.py:206 (faulted),
+#: test_tcpjax.py:127 (TCP), test_servingjax.py:40-97 (serving)
+P50_RTOL, P99_RTOL, SLO_RTOL = 0.15, 0.35, 0.15
+XP_SEEDS, XP_DES_SEEDS = 10, 3
+XP_PACKETS, XP_BATCH, XP_OVERHEAD = 2000, 8, 0.05
+XP_RATE, XP_FAULT_RATE = 40.0, 30.0
+XP_FAULT = dict(crash_t=10.0, crash_worker=1.0, lease=2.0)
+#: the faulted policies whose bands test_fault_jax.py:206 asserts; the
+#: others' faulted models part in both packages (scaleout's p99 is ~1.6x
+#: the DES's on the reference's own planes too), so they are printed
+XP_FAULT_BANDED = ("corec", "hybrid")
+XP_TCP_FLOWS, XP_TCP_PKTS, XP_TCP_SEEDS = 12, 50, 6
+XP_SERVING_KNOBS = dict(admit_limit=24.0, base_workers=2.0, scale_backlog=16.0)
+XP_SERVING = dict(rate=4.0, capacity=900, horizon=150.0, slo_target=30.0)
+XP_SERVING_SEEDS = 8
+
+#: benchmarks/scalability.py's threaded half at its default size
+SCALE_ITEMS = 4000
+SCALE_RING = 1024
+SCALE_BATCH = 32
+SCALE_RUNS = (("scaleout", 1), ("corec", 1), ("corec", 2), ("corec", 4))
+LEASE_S = 0.2
+WEDGE_DRAIN_S = 1.0
+
+#: phase 18d: ring sizes of the protocol model's packed bitmaps
+WORD_RUN_SIZES = (64, 100, 128, 320, 1000, 1024, 4096)
+
+
+def _qstats(r) -> dict:
+    return {"mean": r.mean, "p99": r.percentile(99), "util": r.util}
+
+
+def _order_crc(seqs) -> list:
+    m = (1 << 61) - 1
+    acc = 0
+    for i, s in enumerate(seqs):
+        acc = (acc + (i + 1) * (int(s) + 7)) % m
+    return [len(seqs), acc]
+
+
+def _fstats(done, pkts, per_flow: bool = False) -> dict:
+
+    arr = {p.seqno: p.t_arrival for p in pkts}
+    soj = np.array([t - arr[p.seqno] for t, p in done])
+    seqs = [p.seqno for _, p in done]
+    rep = measure_reordering(seqs)
+    out = {
+        "n": len(done),
+        "mean_sojourn": float(soj.mean()),
+        "p99_sojourn": float(np.percentile(soj, 99)),
+        "reorder_pct": rep.pct,
+        "max_distance": rep.max_distance,
+        "order_crc": _order_crc(seqs),
+    }
+    if per_flow:
+        agg = per_flow_reordering((p.flow, p.flow_seq) for _, p in done)
+        out["flow_reorder_pct"] = agg["__all__"].pct
+    return out
+
+
+def des_golden(key: str) -> dict:
+    """The port's numbers for one entry of ``tests/golden/des_parity.json``,
+    computed as ``tests/test_des_parity.py`` computes the reference's."""
+
+    def fwd(pol, pkts, n, seed, per_flow=False):
+        cfg = ForwarderConfig(policy=pol, n_workers=n, seed=seed)
+        return _fstats(simulate_forwarder(pkts, cfg), pkts, per_flow)
+
+    def tcp_small(pol):
+        flows = [(i, 7, i * 1.5) for i in range(48)]
+        cfg = TcpSimConfig(policy=pol, n_workers=4, service_mean=3.0, seed=3)
+        res = simulate_tcp(flows, cfg)
+        f = np.array([x.fct for x in res])
+        return {
+            "mean_fct": float(f.mean()),
+            "p95_fct": float(np.percentile(f, 95)),
+            "retx": int(sum(x.retransmissions for x in res)),
+            "spurious": int(sum(x.spurious for x in res)),
+        }
+
+    def tcp_single():
+        cfg = TcpSimConfig(policy="corec", n_workers=4, seed=1, deschedule_prob=1e-3)
+        r = simulate_tcp([(0, 6000, 0.0)], cfg)[0]
+        return {"fct": r.fct, "retx": r.retransmissions, "spurious": r.spurious}
+
+    udp = lambda: udp_stream(6000, rate_pps=12.0, size=64, seed=3)  # noqa: E731
+    cases = {
+        "su_m_n4": lambda: _qstats(simulate_scale_up(3.4, 1.0, 4, 20_000, "M", 1)),
+        "su_d_n8": lambda: _qstats(simulate_scale_up(6.8, 1.0, 8, 20_000, "D", 2)),
+        "su_ln_n4": lambda: _qstats(simulate_scale_up(3.0, 1.0, 4, 15_000, "LN", 5)),
+        "so_hash_n4": lambda: _qstats(
+            simulate_scale_out(3.4, 1.0, 4, 20_000, "M", seed=1, assign="hash")
+        ),
+        "so_rr_n8": lambda: _qstats(
+            simulate_scale_out(6.4, 1.0, 8, 20_000, "M", seed=3, assign="rr")
+        ),
+        "proto_corec_n4": lambda: _qstats(
+            simulate_protocol(
+                4, "corec", 3.5, 1.0, claim_overhead=0.1, cas_retry_cost=0.2,
+                batch=16, n_jobs=20_000, service="M", seed=5,
+            )
+        ),
+        "fwd_corec_udp": lambda: fwd("corec", udp(), 4, 4),
+        "fwd_scaleout_udp": lambda: fwd("scaleout", udp(), 4, 4),
+        "fwd_corec_mawi": lambda: fwd(
+            "corec", mawi_mix(6000, mean_rate_pps=2.5, seed=22), 8, 154, True
+        ),
+        "tcp_corec_single": tcp_single,
+        "tcp_corec_small": lambda: tcp_small("corec"),
+        "tcp_scaleout_small": lambda: tcp_small("scaleout"),
+    }
+    return cases[key]()
+
+
+def golden_mismatches(got: dict, want: dict) -> list:
+    """Fields of one golden entry that differ: integers and lists exactly,
+    floats beyond ``GOLDEN_RTOL``."""
+    if set(got) != set(want):
+        return [("fields", sorted(got), sorted(want))]
+    bad = []
+    for f, w in want.items():
+        g = got[f]
+        if isinstance(w, (int, list)) and not isinstance(w, bool):
+            ok = g == w
+        else:
+            ok = abs(g - w) <= GOLDEN_RTOL * abs(w)
+        if not ok:
+            bad.append((f, g, w))
+    return bad
+
+
+def psweep_forwarder_row(workload: str, policy: str, n: int = PSWEEP_PACKETS) -> dict:
+    """One forwarder row of benchmarks/policy_sweep.py through the port's
+    DES plane; raises unless every packet is delivered exactly once."""
+    gen, dp = PSWEEP_FORWARDER[workload]
+    pkts = (udp_stream if workload == "udp" else mawi_mix)(n, **gen)
+    cfg = ForwarderConfig(
+        policy=policy, n_workers=N_WORKERS, seed=PSWEEP_FWD_SEED,
+        deschedule_prob=dp,
+    )
+    done = simulate_forwarder(pkts, cfg)
+    seqs = [p.seqno for _, p in done]
+    if sorted(seqs) != list(range(n)):
+        raise AssertionError(f"phase 18a {workload}/{policy}: not exactly once")
+    arrival = np.array([p.t_arrival for p in pkts])
+    soj = np.array([t for t, _ in done]) - arrival[seqs]
+    flow_rep = per_flow_reordering((p.flow, p.flow_seq) for _, p in done)
+    return {
+        "p50": float(np.percentile(soj, 50)),
+        "p99": float(np.percentile(soj, 99)),
+        "reorder_pct": measure_reordering(seqs).pct,
+        "flow_reorder_pct": flow_rep["__all__"].pct,
+    }
+
+
+def psweep_tcp_row(policy: str, n_flows: int = PSWEEP_TCP_FLOWS) -> dict:
+    """The TCP row of benchmarks/policy_sweep.py through the port's DES
+    plane: every flow completes (the plane's strict audit raises on a
+    stranded claim)."""
+    flows = [(i, 7, i * 1.5) for i in range(n_flows)]
+    cfg = TcpSimConfig(policy=policy, n_workers=N_WORKERS, **PSWEEP_TCP)
+    res = simulate_tcp(flows, cfg)
+    f = np.array([r.fct for r in res])
+    if len(res) != n_flows or not np.isfinite(f).all():
+        raise AssertionError(f"phase 18a tcp/{policy}: a flow did not finish")
+    return {
+        "fct_p50": float(np.percentile(f, 50)),
+        "fct_p99": float(np.percentile(f, 99)),
+        "retx": int(sum(r.retransmissions for r in res)),
+    }
+
+
+def _psweep_task(task: tuple) -> tuple:
+    """One job of phase 18a in a worker process: (task, result, seconds)."""
+    t0 = time.perf_counter()
+    kind, *args = task
+    fn = {"golden": des_golden, "fwd": psweep_forwarder_row, "tcp": psweep_tcp_row}
+    return task, fn[kind](*args), time.perf_counter() - t0
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (its model name, else its
+    vendor, family and model numbers) and its logical core count."""
+    try:
+        info = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return f"host CPU unknown ({os.cpu_count()} cores)"
+
+    def first(key: str) -> str:
+        m = re.search(rf"^{key}\s*:\s*(.+)$", info, re.M | re.I)
+        return m.group(1).strip() if m else ""
+
+    name = first("model name")
+    if name.lower() in ("", "unknown"):  # some sandboxed kernels say so
+        name = " ".join(
+            f"{k} {first(k)}" for k in ("vendor_id", "cpu family", "model") if first(k)
+        )
+    cores = len(re.findall(r"^processor\s*:", info, re.M))
+    return f"{name or 'unknown CPU'} x {cores or os.cpu_count()}"
+
+
+def phase_des_plane(smi: str, cpu: str, meanwhile=None):
+    """18a: benchmarks/policy_sweep.py's grid, uncut, through the port's
+    ``simulate_forwarder`` and ``simulate_tcp`` for every registered
+    policy (4 workers), and every entry of tests/golden/des_parity.json,
+    as one job each in spawned processes side by side (the reordering
+    metric over 40,000 packets is seconds of pure Python a row), one
+    core left to this process, which runs ``meanwhile()`` while they
+    work; returns what it returned."""
+    import multiprocessing as mp
+
+
+    golden = json.loads(GOLDEN_PATH.read_text())
+    pols = available_policies()
+    tasks = (
+        [("fwd", wl, p) for wl in PSWEEP_FORWARDER for p in pols]
+        + [("tcp", p) for p in pols]
+        + [("golden", k) for k in golden]
+    )
+    t0 = time.perf_counter()
+    procs = max(1, min(8, os.cpu_count() or 1) - 1)
+    with mp.get_context("spawn").Pool(procs) as pool:
+        pending = pool.map_async(_psweep_task, tasks, chunksize=1)
+        out = meanwhile() if meanwhile is not None else None
+        results = pending.get(timeout=600)
+    wall = time.perf_counter() - t0
+    busy = sum(s for _, _, s in results)
+    for task, row, secs in results:
+        kind = task[0]
+        if kind == "golden":
+            bad = golden_mismatches(row, golden[task[1]])
+            if bad:
+                raise AssertionError(f"phase 18a: golden {task[1]}: {bad}")
+        elif kind == "fwd":
+            print(
+                f"phase 18a: {task[1]:4s} {task[2]:15s} {PSWEEP_PACKETS} packets "
+                f"exactly once: sojourn p50 {row['p50']:.6f} p99 {row['p99']:.6f} "
+                f"us, reorder% {row['reorder_pct']:.4f}, per-flow "
+                f"{row['flow_reorder_pct']:.4f} ({secs:.2f} s)"
+            )
+        else:
+            print(
+                f"phase 18a: tcp  {task[1]:15s} {PSWEEP_TCP_FLOWS} flows x 7 "
+                f"packets all done: FCT p50 {row['fct_p50']:.4f} p99 "
+                f"{row['fct_p99']:.4f} us, retx {row['retx']} ({secs:.2f} s)"
+            )
+    print(
+        f"phase 18a: tests/golden/des_parity.json reproduced, {len(golden)} "
+        f"entries (integers and order CRCs exact, floats within {GOLDEN_RTOL}); "
+        f"{len(tasks)} jobs in {wall:.2f} s wall over {procs} spawned processes "
+        f"({busy:.2f} s of jobs; host {cpu}; {smi})"
+    )
+    return out
+
+
+def xp_forwarder_request(faulted: bool, policies=None) -> SweepRequest:
+    """The lane engine's side of the (faulted) forwarder cross-plane check:
+    test_jaxplane.py:210 / test_fault_jax.py:206."""
+    return SweepRequest(
+        scenario="forwarder",
+        policies=policies,
+        seeds=np.arange(XP_SEEDS),
+        lane_params=dict(
+            batch=XP_BATCH,
+            max_batch=XP_BATCH,
+            claim_overhead=XP_OVERHEAD,
+            deschedule_prob=0.0,
+        ),
+        traffic_params=dict(rate=XP_FAULT_RATE if faulted else XP_RATE, pkt_size=64.0),
+        fault_params=dict(XP_FAULT) if faulted else {},
+        n_packets=XP_PACKETS,
+        n_workers=N_WORKERS,
+        max_batch=XP_BATCH if faulted else MAX_BATCH,
+    )
+
+
+def xp_forwarder_des(name: str, faulted: bool) -> dict:
+    """The DES side: the same traffic model over ``XP_DES_SEEDS`` seeds,
+    steered by the lane engine's 32-bit hash, first deliveries only; the
+    means over seeds of p50 and p99, and how many items never arrived."""
+    from repro_torch.core.des import DesItem, EventLoop, WorkerPlane
+
+    n = XP_PACKETS
+    rate = XP_FAULT_RATE if faulted else XP_RATE
+    mean, sigma = 0.07 + 1e-5 * 64.0, 0.25
+    p50s, p99s, lost = [], [], 0
+    for seed in range(XP_DES_SEEDS):
+        rng = np.random.default_rng(1000 + seed)
+        arr = np.cumsum(rng.exponential(1.0 / rate, size=n))
+        flows = rng.integers(0, 256, size=n)
+        hints = rss_hash32(flows, N_WORKERS).astype(int)
+        done = np.full(n, np.inf)
+
+        def svc(item, rng=rng):
+            return float(rng.lognormal(np.log(mean) - sigma**2 / 2, sigma))
+
+        def first(t, item, done=done):
+            done[item.payload] = min(done[item.payload], t)
+
+        loop = EventLoop()
+        plane = WorkerPlane(
+            loop,
+            make_policy(name, N_WORKERS, batch=XP_BATCH),
+            N_WORKERS,
+            service_fn=svc,
+            on_complete=first,
+            rng=rng,
+            claim_overhead=XP_OVERHEAD,
+            faults=[FaultSpec(worker=1, t=XP_FAULT["crash_t"])] if faulted else (),
+            lease=XP_FAULT["lease"] if faulted else None,
+        )
+        loop.on("arrive", plane.enqueue)
+        for i in range(n):
+            loop.schedule(
+                float(arr[i]),
+                "arrive",
+                DesItem(flow=int(flows[i]), payload=i, queue_hint=int(hints[i])),
+            )
+        loop.run()
+        plane.finalize()
+        soj = done - arr
+        got = soj[np.isfinite(soj)]
+        lost += n - len(got)
+        p50s.append(np.percentile(got, 50))
+        p99s.append(np.percentile(got, 99))
+    return dict(p50=float(np.mean(p50s)), p99=float(np.mean(p99s)), lost=lost)
+
+
+def xp_tcp_request() -> SweepRequest:
+    """The TCP cross-plane check (test_tcpjax.py:127): 12 flows of 50
+    packets starting 4 us apart, six seeds per policy."""
+    return SweepRequest(
+        scenario="tcp",
+        seeds=np.arange(XP_TCP_SEEDS),
+        n_packets=np.full(XP_TCP_FLOWS, XP_TCP_PKTS),
+        t_start=np.arange(XP_TCP_FLOWS) * 4.0,
+        n_workers=N_WORKERS,
+    )
+
+
+def xp_tcp_des(name: str) -> np.ndarray:
+    """The DES side: the same flows over ``XP_DES_SEEDS`` seeds, steered
+    by the lane engine's 32-bit hash; every flow's FCT, pooled."""
+    from repro_torch.core.torchplane import rss_hash32
+
+    flows = [(i, XP_TCP_PKTS, 4.0 * i) for i in range(XP_TCP_FLOWS)]
+    hints = {
+        i: int(h) for i, h in enumerate(rss_hash32(np.arange(XP_TCP_FLOWS), N_WORKERS))
+    }
+    out = []
+    for seed in range(XP_DES_SEEDS):
+        cfg = TcpSimConfig(
+            policy=name, n_workers=N_WORKERS, seed=seed, queue_hints=hints
+        )
+        out += [r.fct for r in simulate_tcp(flows, cfg)]
+    return np.asarray(out)
+
+
+def xp_serving_request() -> SweepRequest:
+    """The serving cross-plane check (test_servingjax.py:40-97): diurnal
+    arrivals at ~rho = 1 peak, admission and autoscale armed, a finite
+    horizon, every policy on the same knobs."""
+    return SweepRequest(
+        scenario="serving",
+        seeds=np.arange(XP_SERVING_SEEDS),
+        arrival="diurnal",
+        traffic_params=dict(rate=XP_SERVING["rate"]),
+        serving_params=dict(
+            horizon=XP_SERVING["horizon"],
+            slo_target=XP_SERVING["slo_target"],
+            **XP_SERVING_KNOBS,
+        ),
+        use_policy_serving_defaults=False,
+        n_packets=XP_SERVING["capacity"],
+        n_workers=N_WORKERS,
+        max_batch=32,
+    )
+
+
+def xp_serving_des(name: str) -> list:
+    """The DES side: ``simulate_serving_des`` on the same config per seed."""
+    from repro_torch.core.torchplane import rss_hash32
+
+    hints = {f: int(h) for f, h in enumerate(rss_hash32(np.arange(256), N_WORKERS))}
+    return [
+        simulate_serving_des(
+            ServingSimConfig(
+                policy=name,
+                arrival="diurnal",
+                seed=s,
+                queue_hints=hints,
+                batch=32,
+                **XP_SERVING,
+                **XP_SERVING_KNOBS,
+            )
+        )
+        for s in range(XP_SERVING_SEEDS)
+    ]
+
+
+def _band(what: str, got: float, want: float, rtol: float) -> str:
+    if not abs(got - want) <= rtol * abs(want):
+        raise AssertionError(f"{what}: lane engine {got} vs DES {want} (rtol {rtol})")
+    return f"{got:.4f} vs {want:.4f}"
+
+
+def _xp_sweep(req: SweepRequest, dev, route: str, what: str) -> tuple:
+    """One lane-engine sweep of 18b: its lanes, ``run_s`` and its
+    exactly-once check's launches, exactly one on ``route``."""
+    claim_check_cuda.launches = 0
+    done_prefix_packed_cuda.launches = 0
+    timings: dict = {}
+    sweep = run_sweep(req, timings=timings, device=dev)
+    if torch.device(dev).type != "cuda":  # the plain route: no launch
+        return sweep, timings["run_s"], {}
+    return sweep, timings["run_s"], _sweep_launches(what, route=route)
+
+
+def phase_cross_plane(dev, smi: str) -> dict:
+    """18b: the lane engine on the card against the port's DES on the host,
+    with the reference's setups and bands, for every policy: the
+    forwarder (means over seeds of p50 within 15%, of p99 within 35%),
+    the faulted forwarder (worker 1 crashes at t = 10 with a lease of 2:
+    the bands on ``XP_FAULT_BANDED``, every other lease policy drains on
+    both planes, ``locked`` has no lease and strands on both), TCP
+    (pooled FCT p50 / p99) and serving (median SLO attainment within 15%,
+    p99 within 35%, shed within 50% + 10).  Each sweep launches its
+    exactly-once check once: the claim check, or the words route for TCP.
+    Returns the launches per sweep."""
+    launches = {}
+    for faulted in (False, True):
+        what = "faulted forwarder" if faulted else "forwarder"
+        sweep, run_s, launches[f"des {what}"] = _xp_sweep(
+            xp_forwarder_request(faulted), dev, "claim_check", f"phase 18b {what}"
+        )
+        for name, res in sweep.lanes.items():
+            des = xp_forwarder_des(name, faulted)
+            undelivered = int(res.undelivered.sum())
+            if faulted and name == "locked":
+                if not (undelivered > 0 and des["lost"] > 0):
+                    raise AssertionError(
+                        f"phase 18b {what}/locked: undelivered {undelivered} "
+                        f"lanes, {des['lost']} DES items: both must strand"
+                    )
+                print(
+                    f"phase 18b: {what} {name:15s} no lease: strands on both "
+                    f"planes ({undelivered} items on the lanes, {des['lost']} "
+                    f"in the DES)"
+                )
+                continue
+            if undelivered or des["lost"]:
+                raise AssertionError(f"phase 18b {what}/{name}: items lost")
+            if faulted and name not in XP_FAULT_BANDED:
+                print(
+                    f"phase 18b: {what} {name:15s} drains on both planes; p50 "
+                    f"{float(res.p50.cpu().numpy().mean()):.4f} vs {des['p50']:.4f}, "
+                    f"p99 {float(res.p99.cpu().numpy().mean()):.4f} vs "
+                    f"{des['p99']:.4f} (no band: the reference asserts none)"
+                )
+                continue
+            p50 = _band(
+                f"phase 18b {what}/{name} p50",
+                float(res.p50.cpu().numpy().mean()), des["p50"], P50_RTOL,
+            )
+            p99 = _band(
+                f"phase 18b {what}/{name} p99",
+                float(res.p99.cpu().numpy().mean()), des["p99"], P99_RTOL,
+            )
+            print(f"phase 18b: {what} {name:15s} p50 {p50}, p99 {p99}")
+        print(f"phase 18b: {what}: {5 * XP_SEEDS} lanes, run_s {run_s:.4f} ({smi})")
+    sweep, run_s, launches["des tcp"] = _xp_sweep(
+        xp_tcp_request(), dev, "words", "phase 18b tcp"
+    )
+    for name, res in sweep.lanes.items():
+        if not bool(res.done.all()):
+            raise AssertionError(f"phase 18b tcp/{name}: a flow did not finish")
+        j = res.fct.cpu().numpy().ravel()
+        d = xp_tcp_des(name)
+        parts = [
+            f"p{q} "
+            + _band(
+                f"phase 18b tcp/{name} p{q}",
+                float(np.percentile(j, q)), float(np.percentile(d, q)), rtol,
+            )
+            for q, rtol in ((50, P50_RTOL), (99, P99_RTOL))
+        ]
+        print(f"phase 18b: tcp {name:15s} FCT " + ", ".join(parts))
+    print(f"phase 18b: tcp: {5 * XP_TCP_SEEDS} lanes, run_s {run_s:.4f}")
+    sweep, run_s, launches["des serving"] = _xp_sweep(
+        xp_serving_request(), dev, "claim_check", "phase 18b serving"
+    )
+    for name, res in sweep.lanes.items():
+        des = xp_serving_des(name)
+        slo = _band(
+            f"phase 18b serving/{name} SLO",
+            float(np.median(res.slo_attained.cpu().numpy())),
+            float(np.median([r.slo_attained for r in des])), SLO_RTOL,
+        )
+        p99 = _band(
+            f"phase 18b serving/{name} p99",
+            float(np.median(res.p99.cpu().numpy())),
+            float(np.median([r.p99 for r in des])),
+            P99_RTOL,
+        )
+        shed = (
+            float(np.median(res.shed.cpu().numpy())),
+            float(np.median([r.shed for r in des])),
+        )
+        if not abs(shed[0] - shed[1]) <= 10.0 + 0.5 * abs(shed[1]):
+            raise AssertionError(f"phase 18b serving/{name}: shed {shed}")
+        print(
+            f"phase 18b: serving {name:15s} SLO attainment {slo}, p99 {p99}, "
+            f"shed {shed[0]:.1f} vs {shed[1]:.1f}"
+        )
+    print(f"phase 18b: serving: {5 * XP_SERVING_SEEDS} lanes, run_s {run_s:.4f}")
+    return launches
+
+
+def _l3fwd(item) -> None:
+    """benchmarks/scalability.py's l3fwd-class NF: a few integer ops."""
+    x = (item.seqno * 2654435761) & 0xFFFFFFFF
+    item.payload = x >> 8
+
+
+_BLOB = b"x" * 1400
+
+
+def _ipsec(item) -> None:
+    """benchmarks/scalability.py's ipsec-class NF: a SHA-256 per packet."""
+    item.payload = hashlib.sha256(_BLOB).digest()
+
+
+THREAD_NFS = {"l3fwd": _l3fwd, "ipsec": _ipsec}
+
+
+def threaded_run(
+    policy: str,
+    n_workers: int,
+    work,
+    n_items: int = SCALE_ITEMS,
+    faults=(),
+    drain_timeout: float = 60.0,
+    ring: int = SCALE_RING,
+    n_flows: int = 64,
+    hold_until_dead: bool = False,
+    **queue_kw,
+):
+    """One open-loop burst of ``n_items`` through ``make_queue`` +
+    ``WorkerPool`` on real threads (benchmarks/scalability.py's
+    ``_measure_threaded``); the pool's ``DispatchResult``.  With
+    ``hold_until_dead`` every item's work waits until some worker has
+    died, so the live workers hold their claims and the worker a
+    ``hold`` fault names gets a claim to die holding."""
+    def held(it) -> None:
+        while not (any(pool.dead) or pool._stop.is_set()):
+            time.sleep(0.001)
+        work(it)
+
+    q = make_queue(policy, n_workers, ring, **queue_kw)
+    items = [Item(seqno=i, flow=i % n_flows) for i in range(n_items)]
+    pool = WorkerPool(
+        q, n_workers, held if hold_until_dead else work, max_batch=SCALE_BATCH,
+        faults=faults,
+    )
+    return pool.run_open_loop(items, rate=None, drain_timeout=drain_timeout)
+
+
+def _delivered(res) -> list:
+    return sorted(it.seqno for it in res.items)
+
+
+def _thread_line(what: str, res, n: int) -> str:
+    lat = np.array(res.latencies()) * 1e6
+    return (
+        f"phase 18c: {what}: {n / res.wall_time:.1f} items/s, sojourn p50 "
+        f"{np.percentile(lat, 50):.2f} p99 {np.percentile(lat, 99):.2f} us"
+    )
+
+
+def stall_pre_stranding(policy: str = "scaleout", n: int = 150, n_workers: int = 3):
+    """The reference's ``scaleout/stall@pre`` case
+    (tests/test_faults.py::test_chaos_threaded_random_fault_schedules):
+    worker 0 parks before its first claim, so it holds no lease and is
+    not dead, and no peer drains its ring until shutdown.  Returns the
+    run and the seqnos ``rss_hash`` pins to worker 0's ring."""
+    faults = [FaultSpec(worker=0, kind="stall", after_claims=0, point="pre")]
+    res = threaded_run(
+        policy, n_workers, lambda it: None, n_items=n, faults=faults,
+        drain_timeout=WEDGE_DRAIN_S, ring=128, n_flows=16, lease_timeout=LEASE_S,
+    )
+    pinned = [i for i in range(n) if rss_hash(i % 16, n_workers) == 0]
+    return res, pinned
+
+
+def phase_threaded(smi: str, cpu: str) -> None:
+    """18c: the threaded plane on the card machine's host: the threaded
+    half of benchmarks/scalability.py (4,000 items, l3fwd and ipsec,
+    scaleout on 1 thread, corec on 1, 2 and 4; ring 1,024, max_batch 32),
+    every registered policy on 4 threads, a crash mid-claim per lease
+    policy (drains through lease reclamation), ``locked`` with a crashed
+    holder (reported wedged within its drain timeout), and the
+    reference's ``scaleout/stall@pre`` stranding.  Exactly once on every
+    run that is not expected to wedge."""
+    n = SCALE_ITEMS
+    t0 = time.perf_counter()
+    for nf, work in THREAD_NFS.items():
+        for pol, k in SCALE_RUNS:
+            res = threaded_run(pol, k, work)
+            if _delivered(res) != list(range(n)) or res.wedged:
+                raise AssertionError(f"phase 18c {nf}/{pol}x{k}: not exactly once")
+            print(_thread_line(f"{nf} {pol} x {k} thread(s)", res, n))
+    for pol in available_policies():
+        res = threaded_run(pol, N_WORKERS, _l3fwd)
+        if _delivered(res) != list(range(n)) or res.wedged or res.duplicates:
+            raise AssertionError(f"phase 18c {pol}: not exactly once")
+        print(_thread_line(f"l3fwd {pol} x {N_WORKERS} threads", res, n))
+    hold = [FaultSpec(worker=0, after_claims=0, point="hold")]
+    for pol in available_policies():
+        if not get_spec(pol).leases:
+            continue
+        res = threaded_run(
+            pol, N_WORKERS, _l3fwd, faults=hold, lease_timeout=LEASE_S,
+            hold_until_dead=True,
+        )
+        if _delivered(res) != list(range(n)) or res.wedged:
+            raise AssertionError(f"phase 18c {pol} crash mid-claim: did not drain")
+        if res.dead_workers != 1 or res.reclaims < 1 or res.duplicates > SCALE_BATCH:
+            raise AssertionError(
+                f"phase 18c {pol} crash mid-claim: dead {res.dead_workers}, "
+                f"reclaims {res.reclaims}, duplicates {res.duplicates}"
+            )
+        what = f"l3fwd {pol} x {N_WORKERS}, worker 0 killed holding a claim"
+        print(
+            _thread_line(what, res, n)
+            + f"; drained through {res.reclaims} lease reclaim(s) "
+            f"(lease {LEASE_S} s), {res.duplicates} duplicate(s), wall "
+            f"{res.wall_time:.3f} s"
+        )
+    res = threaded_run(
+        "locked", N_WORKERS, _l3fwd, faults=hold, drain_timeout=WEDGE_DRAIN_S,
+        hold_until_dead=True,
+    )
+    if not res.wedged or res.dead_workers < 1 or len(res.items) >= n:
+        raise AssertionError("phase 18c locked: a crashed holder did not wedge")
+    print(
+        f"phase 18c: locked x {N_WORKERS}, worker 0 killed inside the "
+        f"mutex: reported wedged after {res.wall_time:.3f} s (drain timeout "
+        f"{WEDGE_DRAIN_S} s), {len(res.items)} of {n} delivered"
+    )
+    res, pinned = stall_pre_stranding()
+    missing = sorted(set(range(150)) - set(_delivered(res)))
+    if not res.wedged or missing != pinned:
+        raise AssertionError(f"phase 18c scaleout/stall@pre: missing {missing}")
+    print(
+        f"phase 18c: scaleout/stall@pre (the reference's stranding): wedged, "
+        f"the {len(pinned)} items rss_hash pins to the parked worker 0 "
+        f"undelivered, every other item once"
+    )
+    print(
+        f"phase 18c: threaded plane in {time.perf_counter() - t0:.2f} s "
+        f"(host {cpu}; {smi})"
+    )
+
+
+def word_run_rows(size: int, rng) -> tuple:
+    """Phase 18d's rows for one ring size: random packed bitmaps of 64-bit
+    words (dense, half and all ones, with garbage past ``size`` in the
+    last word), every start at a word edge +-1, and limits from 0 to
+    ``size`` (0, 1, the run and its neighbours, ``size``, random).
+    Returns the rows' bool masks ``[R, size]``, starts, limits and the
+    runs ``protocol_sim._word_run`` yields."""
+    n_words = -(-size // 64)
+    starts = sorted({(64 * k + d) % size for k in range(n_words) for d in (-1, 0, 1)})
+    masks, st, lim, want = [], [], [], []
+    for p_one in (0.98, 0.5, 1.0):
+        bits = rng.random(n_words * 64) < p_one
+        words = [
+            sum(1 << b for b in range(64) if bits[64 * w + b]) for w in range(n_words)
+        ]
+        for s in starts:
+            rot = np.roll(bits[:size], -s)
+            run = size if rot.all() else int(np.argmin(rot))
+            for limit in sorted(
+                {0, 1, run - 1, run, run + 1, size, int(rng.integers(0, size + 1))}
+            ):
+                if not 0 <= limit <= size:
+                    continue
+                *_, last = _word_run(words, size, s, limit)
+                masks.append(bits[:size])
+                st.append(s)
+                lim.append(limit)
+                want.append(last[1])
+    return (
+        np.stack(masks),
+        np.array(st, dtype=np.int32),
+        np.array(lim, dtype=np.int32),
+        np.array(want, dtype=np.int32),
+    )
+
+
+def phase_word_run(dev, smi: str) -> int:
+    """18d: the protocol model's packed TAIL scan against kernel 2: for
+    every ring size of ``WORD_RUN_SIZES`` (64-4,096), the run
+    ``protocol_sim._word_run`` yields equals ``ops.done_prefix_batch`` on
+    the card (the CUDA kernel) on the unpacked masks, exactly.  Only
+    ``limit <= size``: the model keeps scanning past one rotation, the
+    kernel stops at n, and the ring never asks for more than its size.
+    Returns the kernel's launches (one per size)."""
+    rng = np.random.default_rng(SEED)
+    before = done_prefix_batch_cuda.launches
+    rows = 0
+    for size in WORD_RUN_SIZES:
+        masks, st, lim, want = word_run_rows(size, rng)
+        got = ops.done_prefix_batch(
+            torch.from_numpy(masks).to(dev),
+            torch.from_numpy(st).to(dev),
+            torch.from_numpy(lim).to(dev),
+        )
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"phase 18d: size {size}: kernel != _word_run")
+        rows += len(want)
+    launches = done_prefix_batch_cuda.launches - before
+    if torch.device(dev).type == "cuda" and launches != len(WORD_RUN_SIZES):
+        raise AssertionError(f"phase 18d: {launches} launches")
+    print(
+        f"phase 18d: protocol_sim._word_run == done_prefix_batch (CUDA kernel) "
+        f"on {rows} rows, ring sizes {list(WORD_RUN_SIZES)}, every start at a "
+        f"word edge +-1, limits 0..size (exact); {launches} launches ({smi})"
+    )
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3697,7 +4511,6 @@ def main() -> int:
     }
     tcp_launches, sack_lanes = phase_tcp_grid(dev)
     sweeps.update(tcp_launches)
-    kernel = _packed_row(kernel, claim, sweeps)
     phase_other_traffic(dev)
     phase_agreement(dev)
     launches = dict.fromkeys(MODEL_KERNELS, 0)
@@ -3744,18 +4557,28 @@ def main() -> int:
     measured = phase_sharded_steps(dev, smi.splitlines()[0])
     phase_dryrun_estimate(measured, smi.splitlines()[0])
     phase_dryrun_cells(smi.splitlines()[0])
+    # phase 18: the DES and threaded planes on the host, the lane engine
+    # against them on the card, and the protocol model against kernel 2
+    card, cpu = smi.splitlines()[0], host_cpu()
+    # 18b runs in this process while 18a's processes work
+    sweeps.update(phase_des_plane(card, cpu, lambda: phase_cross_plane(dev, card)))
+    phase_threaded(card, cpu)
+    protocol_launches = phase_word_run(dev, card)
+    kernel = _packed_row(kernel, claim, sweeps)
     # a kernel's launches through all its wrappers: the RMSNorm kernel as
     # the plain and the fused norm, the batched done-prefix kernel on
-    # device tensors and on the engine's pinned ring state
+    # device tensors and on the engine's pinned ring state, and phase 18d's
     for k in model_kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "rmsnorm":
             k["launches"] += launches["add_rmsnorm"]
             k["fused_launches"] = launches["add_rmsnorm"]
         if k["name"] == "done_prefix_batch":
-            k["launches"] += launches["done_prefix_batch_mapped"]
+            k["launches"] += launches["done_prefix_batch_mapped"] + protocol_launches
             k["mapped_launches"] = launches["done_prefix_batch_mapped"]
+            k["protocol_model_launches"] = protocol_launches
     print(f"launches over the {len(SERVED)} serving paths: {launches}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": [kernel, *model_kernels]}))
     print(
         json.dumps(

@@ -8,8 +8,10 @@ reference.  Against ``repro``: the port's torch-RNG traffic is held
 distributionally (torch and jax draws differ), per-policy medians over
 16 seeds within the tolerances of ``test_jaxplane.py`` (P50_RTOL,
 P99_RTOL); the policy catalog, the steering hash and the queue helpers
-agree exactly.  Last, importing and running the port loads neither
-``jax`` nor ``repro``.
+agree exactly, as do the counter hash and the MAWI tables that the
+DES modules keep beside the lane engine's.  Last, importing and
+running the port -- the lane engine, the DES and threaded planes and
+the protocol model included -- loads neither ``jax`` nor ``repro``.
 """
 
 from __future__ import annotations
@@ -30,8 +32,13 @@ jax = pytest.importorskip("jax")
 from repro.core import jaxplane as jp  # noqa: E402
 from repro.core import sweep as jsweep  # noqa: E402
 from repro.core.policy import jax_policies  # noqa: E402
-from repro.core.reorder import measure_reordering  # noqa: E402
-from repro_torch.core import SweepRequest, run_sweep, torch_policies  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    SweepRequest,
+    measure_reordering,
+    run_sweep,
+    torch_policies,
+)
+from repro_torch.core import faults, traffic  # noqa: E402
 from repro_torch.core import torchplane as tp  # noqa: E402
 from repro_torch.core.policy import TORCH_POLICIES, make_torch_policy  # noqa: E402
 
@@ -278,6 +285,30 @@ def test_distributional_parity_with_reference_sweep(name):
     assert (port.claimed_prefix.numpy() == 2000).all()
 
 
+def test_fault_hash_equals_lane_engine_hash():
+    """``faults.hash_u01`` (Python ints) equals ``torchplane.hash_u01``
+    (int64 tensors) through float32, bit for bit, on a grid of counters."""
+    seeds = [0, 1, 7, 0xA5A5A5A5, 2**31 + 5, 2**32 - 1]
+    ab = [0, 1, 2, 3, 255, 1000, 65_537, 2**31 - 1, 2**32 - 1]
+    grid = [(s, a, b) for s in seeds for a in ab for b in ab]
+    want = np.array([faults.hash_u01(s, a, b) for s, a, b in grid], dtype=np.float32)
+    s, a, b = (torch.tensor(c, dtype=torch.int64) for c in zip(*grid))
+    got = tp.hash_u01(s, a, b).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_mawi_tables_equal_lane_engine():
+    """The DES's MAWI packet-size mix (``traffic.py``) and the lane
+    engine's copy (``torchplane.py``) are one table."""
+    np.testing.assert_array_equal(
+        tp._MAWI_SIZES, traffic._MAWI_SIZES.astype(np.float32)
+    )
+    np.testing.assert_array_equal(
+        tp._MAWI_WEIGHTS, traffic._MAWI_WEIGHTS / traffic._MAWI_WEIGHTS.sum()
+    )
+
+
 def test_port_loads_neither_jax_nor_repro():
     code = textwrap.dedent(
         """
@@ -361,6 +392,25 @@ def test_port_loads_neither_jax_nor_repro():
         base = run_sweep(req, device="cpu")["corec"]
         for r in ranks:
             assert (r["lanes"]["corec"]["p99"] == base.p99.numpy()).all()
+        # the DES and threaded planes, and the protocol model
+        from repro_torch.core import (
+            ForwarderConfig, Item, WorkerPool, make_queue, simulate_forwarder,
+            udp_stream,
+        )
+        from repro_torch.core.protocol_sim import (
+            SimState, consumer_packed, producer_packed, run_schedule,
+        )
+        pkts = udp_stream(200, rate_pps=45.0, seed=3, n_flows=16)
+        done = simulate_forwarder(pkts, ForwarderConfig(policy="hybrid"))
+        assert sorted(p.seqno for _, p in done) == list(range(200))
+        pool = WorkerPool(make_queue("corec", 2, 64), 2, lambda it: None)
+        res = pool.run_open_loop([Item(seqno=i) for i in range(100)])
+        assert sorted(it.seqno for it in res.items) == list(range(100))
+        st = SimState(64)
+        actors = [producer_packed(st, list(range(20)), burst=4)] + [
+            consumer_packed(st, w, max_batch=4, rounds=500) for w in range(2)]
+        run_schedule(st, actors, [i % 3 for i in range(3000)])
+        assert sorted(st.delivered) == list(range(20))
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "repro")
