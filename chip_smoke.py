@@ -2389,10 +2389,12 @@ def _self_us(e) -> float:
 
 
 def _device_us(prof) -> tuple:
-    """Total kernel time (us) of a profiler window, and the top kernels."""
+    """Total kernel time (us) of a profiler window, and the top kernels
+    (the device-side copies of ``record_function`` ranges, such as the
+    program's ``repro.*`` spans, are not kernels)."""
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         kernels.append((_self_us(e), e.count, e.key))
     kernels.sort(reverse=True)

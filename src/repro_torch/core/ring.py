@@ -87,26 +87,67 @@ class Claim:
         return self.end - self.start
 
 
-@dataclass
-class RingStats:
-    """Race/occupancy counters (cheap, non-atomic; diagnostic only)."""
+#: RingStats' counters, in the order :meth:`RingStats.snapshot` lists them
+_COUNTERS = (
+    "claims",
+    "claimed_items",
+    "cas_failures",
+    "empty_polls",
+    "releases",
+    "released_items",
+    "trylock_failures",
+    "produced",
+    "full_producer_polls",
+    "batch_publishes",
+    "atomic_ops",  # every atomic load/store/RMW on the hot paths
+    "reclaims",  # expired-lease claims re-issued by a helper
+    "reclaimed_items",  # slots covered by those reclaims
+)
 
-    claims: int = 0
-    claimed_items: int = 0
-    cas_failures: int = 0
-    empty_polls: int = 0
-    releases: int = 0
-    released_items: int = 0
-    trylock_failures: int = 0
-    produced: int = 0
-    full_producer_polls: int = 0
-    batch_publishes: int = 0
-    atomic_ops: int = 0  # every atomic load/store/RMW on the hot paths
-    reclaims: int = 0  # expired-lease claims re-issued by a helper
-    reclaimed_items: int = 0  # slots covered by those reclaims
+
+class _Counts:
+    """One thread's shard of a :class:`RingStats`."""
+
+    __slots__ = _COUNTERS
+
+    def __init__(self):
+        for name in _COUNTERS:
+            setattr(self, name, 0)
+
+
+class RingStats:
+    """Race/occupancy counters, exact under threads: each thread adds
+    to a shard of its own (:meth:`shard`), and a read
+    (``stats.claims``, :meth:`snapshot`) sums the shards."""
+
+    __slots__ = ("_local", "_shards", "_lock")
+
+    def __init__(self):
+        self._local = threading.local()
+        self._shards: List[_Counts] = []
+        self._lock = threading.Lock()
+
+    def shard(self) -> _Counts:
+        """The calling thread's counters, made at its first count."""
+        try:
+            return self._local.counts
+        except AttributeError:
+            counts = self._local.counts = _Counts()
+            with self._lock:
+                self._shards.append(counts)
+            return counts
+
+    def __getattr__(self, name: str) -> int:
+        if name not in _COUNTERS:
+            raise AttributeError(name)
+        return sum(getattr(c, name) for c in tuple(self._shards))
 
     def snapshot(self) -> dict:
-        return dict(self.__dict__)
+        shards = tuple(self._shards)
+        return {name: sum(getattr(c, name) for c in shards) for name in _COUNTERS}
+
+    def __repr__(self) -> str:
+        return f"RingStats({self.snapshot()})"
 
 
 @dataclass
@@ -203,14 +244,16 @@ class CorecRing:
         """
         head = self._head.load()
         if head - self._tail.load() >= self.size:
-            self.stats.atomic_ops += 2
-            self.stats.full_producer_polls += 1
+            counts = self.stats.shard()
+            counts.atomic_ops += 2
+            counts.full_producer_polls += 1
             return False
         idx = head & self.mask
         # Slot must have been recycled for this epoch by the releaser.
         if self._seq.load(idx) != head:
-            self.stats.atomic_ops += 3
-            self.stats.full_producer_polls += 1
+            counts = self.stats.shard()
+            counts.atomic_ops += 3
+            counts.full_producer_polls += 1
             return False
         self._cells[idx] = payload
         self._seq.store(idx, head + 1)  # DD stamp: visible to consumers
@@ -218,8 +261,9 @@ class CorecRing:
         if self.packed:
             ops += self._dd.set_range(idx, 1)  # DD bit for word-scan claims
         self._head.store(head + 1)
-        self.stats.atomic_ops += ops + 1
-        self.stats.produced += 1
+        counts = self.stats.shard()
+        counts.atomic_ops += ops + 1
+        counts.produced += 1
         return True
 
     def produce_batch(self, payloads: Sequence[Any]) -> int:
@@ -241,8 +285,9 @@ class CorecRing:
         tail = self._tail.load()
         n = min(len(payloads), self.size - (head - tail))
         if n <= 0:
-            self.stats.atomic_ops += 2
-            self.stats.full_producer_polls += 1
+            counts = self.stats.shard()
+            counts.atomic_ops += 2
+            counts.full_producer_polls += 1
             return 0
         # Credit implies recycled: try_release() restamps _seq and clears
         # the bitmaps *before* publishing the new TAIL, so any ticket
@@ -254,9 +299,10 @@ class CorecRing:
         )
         ops = 3 + self._dd.set_range(head & self.mask, n)
         self._head.store(head + n)  # the one doorbell write
-        self.stats.atomic_ops += ops + 1
-        self.stats.produced += n
-        self.stats.batch_publishes += 1
+        counts = self.stats.shard()
+        counts.atomic_ops += ops + 1
+        counts.produced += n
+        counts.batch_publishes += 1
         return n
 
     # ------------------------------------------------------------------
@@ -288,14 +334,15 @@ class CorecRing:
                 ops += 1
             ops += 1  # the failing (or max_batch-bounded) scan load
             if n == 0:
-                self.stats.atomic_ops += ops
-                self.stats.empty_polls += 1
+                counts = self.stats.shard()
+                counts.atomic_ops += ops
+                counts.empty_polls += 1
                 return None
             won = self._claim_head.compare_and_swap(start, start + n)
-            self.stats.atomic_ops += ops + 1
+            self.stats.shard().atomic_ops += ops + 1
             if won:
                 break
-            self.stats.cas_failures += 1
+            self.stats.shard().cas_failures += 1
         return self._copy_out(start, n)
 
     def _claim_packed(self, max_batch: int) -> Optional[Claim]:
@@ -311,8 +358,9 @@ class CorecRing:
             ops = 2
             want = min(max_batch, head - start)
             if want <= 0:
-                self.stats.atomic_ops += ops
-                self.stats.empty_polls += 1
+                counts = self.stats.shard()
+                counts.atomic_ops += ops
+                counts.empty_polls += 1
                 return None
             n, w = self._dd.run_of_ones(start & self.mask, want)
             ops += w
@@ -320,14 +368,15 @@ class CorecRing:
                 # Stale view: a peer claimed and released [start, ...) between
                 # our claim_head load and the word scan.  Retry with fresh
                 # cursors — the peer's progress is what failed us.
-                self.stats.atomic_ops += ops
-                self.stats.cas_failures += 1
+                counts = self.stats.shard()
+                counts.atomic_ops += ops
+                counts.cas_failures += 1
                 continue
             won = self._claim_head.compare_and_swap(start, start + n)
-            self.stats.atomic_ops += ops + 1
+            self.stats.shard().atomic_ops += ops + 1
             if won:
                 break
-            self.stats.cas_failures += 1
+            self.stats.shard().cas_failures += 1
         return self._copy_out(start, n)
 
     def _copy_out(self, start: int, n: int) -> Claim:
@@ -338,8 +387,9 @@ class CorecRing:
             idx = t & self.mask
             payloads.append(self._cells[idx])
             self._cells[idx] = None
-        self.stats.claims += 1
-        self.stats.claimed_items += n
+        counts = self.stats.shard()
+        counts.claims += 1
+        counts.claimed_items += n
         if self.lease_timeout is not None:
             # Stamp the deadline BEFORE taking the lease mutex: the clock
             # is injectable (tests use fake clocks that may inspect lease
@@ -376,7 +426,7 @@ class CorecRing:
             # slots the producer has since refilled
             if ent is None or not ent.word.try_complete():
                 return
-        self.stats.atomic_ops += self._done.set_range(
+        self.stats.shard().atomic_ops += self._done.set_range(
             claim.start & self.mask, claim.end - claim.start
         )
 
@@ -400,14 +450,15 @@ class CorecRing:
         for ent in expired:
             if not ent.word.try_reclaim():
                 continue
-            self.stats.atomic_ops += 1  # the winning reclamation CAS
-            self.stats.atomic_ops += self._done.set_range(
+            counts = self.stats.shard()
+            counts.atomic_ops += 1  # the winning reclamation CAS
+            counts.atomic_ops += self._done.set_range(
                 ent.start & self.mask, ent.n
             )
             with self._lease_mtx:
                 self._leases.pop(ent.start, None)
-            self.stats.reclaims += 1
-            self.stats.reclaimed_items += ent.n
+            counts.reclaims += 1
+            counts.reclaimed_items += ent.n
             out.append(Claim(ent.start, ent.start + ent.n, list(ent.payloads)))
         return out
 
@@ -423,7 +474,7 @@ class CorecRing:
         trylock failure or no contiguous prefix — both are free non-events).
         """
         if not self._tail_lock.try_acquire():
-            self.stats.trylock_failures += 1
+            self.stats.shard().trylock_failures += 1
             return 0
         try:
             if self.packed:
@@ -457,9 +508,10 @@ class CorecRing:
                 ops += 2
             self._tail.store(t)
             ops += 1
-            self.stats.releases += 1
-            self.stats.released_items += freed
-        self.stats.atomic_ops += ops
+            counts = self.stats.shard()
+            counts.releases += 1
+            counts.released_items += freed
+        self.stats.shard().atomic_ops += ops
         return freed
 
     def _release_packed(self) -> int:
@@ -480,9 +532,10 @@ class CorecRing:
             )
             self._tail.store(tail + freed)
             ops += 2
-            self.stats.releases += 1
-            self.stats.released_items += freed
-        self.stats.atomic_ops += ops
+            counts = self.stats.shard()
+            counts.releases += 1
+            counts.released_items += freed
+        self.stats.shard().atomic_ops += ops
         return freed
 
     # ------------------------------------------------------------------

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import ArchConfig
 from ..kernels import ops
 from ..sharding import (
@@ -643,7 +644,9 @@ def _moe_combine(out_e, row, gk, idx, k: int):
     return y
 
 
-def moe_block(p, x: torch.Tensor, cfg: ArchConfig, stats=None, rules=None):
+def moe_block(
+    p, x: torch.Tensor, cfg: ArchConfig, stats=None, rules=None, spans=False
+):
     """Top-k MoE with group-local dispatch (the reference's
     ``moe_block``, ``layers.py:279-365``): returns ``(y, aux)``.
 
@@ -665,7 +668,13 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, stats=None, rules=None):
     every rank routes every group, as a group must see all of its
     tokens), routing, dispatch and combine local to a rank's groups, the
     expert FFNs on the buffer with the experts' TP/EP weights, and the
-    aux loss from the groups' summed router probabilities and counts."""
+    aux loss from the groups' summed router probabilities and counts.
+
+    With ``spans`` (the decode step's), while a profiler records, three
+    inner spans (``repro_torch.tracing.inner_span``): ``moe.route``
+    (routing and dispatch into the buffer), ``moe.experts`` (the expert
+    FFNs) and ``moe.combine``."""
+    part = tracing.inner_span if spans else tracing.no_span
     dt = cdtype(cfg)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -675,41 +684,44 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, stats=None, rules=None):
     if rules is not None:
         shards = math.prod(rules.mesh.size(i) for i in mesh_dims(rules, "batch"))
         ga = "batch" if G % shards == 0 else None
-    xg = constrain(rules, x.reshape(G, T // G, d), ga, None, None)
-    if rules is None:
-        buf, row, gk, plan = _moe_dispatch(p["router"], xg, cfg, stats)
-        idx, aux = plan.idx, plan.aux
-    else:
-        def dispatch(xg_, r_):
-            buf, row, gk, plan = _moe_dispatch(r_, xg_, cfg)
-            return buf, row, gk, plan.idx, plan.probs.sum(1), plan.counts.float()
+    with part("moe.route"):
+        xg = constrain(rules, x.reshape(G, T // G, d), ga, None, None)
+        if rules is None:
+            buf, row, gk, plan = _moe_dispatch(p["router"], xg, cfg, stats)
+            idx, aux = plan.idx, plan.aux
+        else:
+            def dispatch(xg_, r_):
+                buf, row, gk, plan = _moe_dispatch(r_, xg_, cfg)
+                return buf, row, gk, plan.idx, plan.probs.sum(1), plan.counts.float()
 
-        buf, row, gk, idx, psum, counts = local(
+            buf, row, gk, idx, psum, counts = local(
+                rules,
+                dispatch,
+                [(ga, None, None, None)] + [(ga, None)] * 5,
+                ((ga, None, None), (None, None)),
+            )(xg, p["router"].float())
+            aux = E * torch.sum((psum.sum(0) / T) * (counts.sum(0) / (T * k)))
+        buf = constrain(rules, buf, ga, "experts", None, None)
+    with part("moe.experts"):
+        cap = buf.shape[2]
+        h_in = buf.transpose(0, 1).reshape(E, G * cap, d)
+        w1 = use_weight(rules, p["w1"], ("experts", None, "expert_mlp"), dt)
+        w3 = use_weight(rules, p["w3"], ("experts", None, "expert_mlp"), dt)
+        h = F.silu(torch.matmul(h_in, w1)) * torch.matmul(h_in, w3)
+        h = constrain(rules, h.reshape(E, G, cap, -1).transpose(0, 1),
+                      ga, "experts", None, "expert_mlp")
+        h = h.transpose(0, 1).reshape(E, G * cap, -1)
+        w2 = use_weight(rules, p["w2"], ("experts", "expert_mlp", None), dt)
+        out_e = torch.matmul(h, w2).reshape(E, G, cap, d).transpose(0, 1)
+        out_e = constrain(rules, out_e, ga, None, None, None)
+    with part("moe.combine"):
+        y = local(
             rules,
-            dispatch,
-            [(ga, None, None, None), (ga, None), (ga, None), (ga, None), (ga, None), (ga, None)],
-            ((ga, None, None), (None, None)),
-        )(xg, p["router"].float())
-        aux = E * torch.sum((psum.sum(0) / T) * (counts.sum(0) / (T * k)))
-    buf = constrain(rules, buf, ga, "experts", None, None)
-    cap = buf.shape[2]
-    h_in = buf.transpose(0, 1).reshape(E, G * cap, d)
-    w1 = use_weight(rules, p["w1"], ("experts", None, "expert_mlp"), dt)
-    w3 = use_weight(rules, p["w3"], ("experts", None, "expert_mlp"), dt)
-    h = F.silu(torch.matmul(h_in, w1)) * torch.matmul(h_in, w3)
-    h = constrain(rules, h.reshape(E, G, cap, -1).transpose(0, 1),
-                  ga, "experts", None, "expert_mlp")
-    h = h.transpose(0, 1).reshape(E, G * cap, -1)
-    w2 = use_weight(rules, p["w2"], ("experts", "expert_mlp", None), dt)
-    out_e = torch.matmul(h, w2).reshape(E, G, cap, d).transpose(0, 1)
-    out_e = constrain(rules, out_e, ga, None, None, None)
-    y = local(
-        rules,
-        lambda o_, r_, g_, i_: _moe_combine(o_, r_, g_, i_, k),
-        (ga, None, None),
-        ((ga, None, None, None), (ga, None), (ga, None), (ga, None)),
-    )(out_e, row, gk, idx)
-    y = constrain(rules, y, ga, None, None)
+            lambda o_, r_, g_, i_: _moe_combine(o_, r_, g_, i_, k),
+            (ga, None, None),
+            ((ga, None, None, None), (ga, None), (ga, None), (ga, None)),
+        )(out_e, row, gk, idx)
+        y = constrain(rules, y, ga, None, None)
     return y.reshape(B, S, d), aux
 
 

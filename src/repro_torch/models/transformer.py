@@ -55,6 +55,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import tracing
 from ..config import ArchConfig
 from .base import LMBase, _stack, _unstack
 from .layers import (
@@ -94,7 +95,14 @@ class DecoderLM(LMBase):
     hold, so a request's tokens after its first depend on the requests
     decoded beside it.  Setting ``moe_stats`` to a dict of 0-d int64
     tensors ``{"kept", "assigned"}`` on the device makes every decode
-    step add its MoE assignment counts to it (``layers.moe_block``)."""
+    step add its MoE assignment counts to it (``layers.moe_block``).
+
+    While a profiler records, each layer of a decode step is two inner
+    spans (``repro_torch.tracing.inner_span``, buffered without a
+    profiler range): ``attn`` (its first norm and attention) and ``moe``
+    or ``ffn`` (its second norm and MoE block or MLP), each with the
+    layer's place in the stack as ``layer``; a ``moe`` span holds the
+    block's own three.  Prefill and training record none."""
 
     FP32_KEYS = ("ln1", "ln2", "final_norm", "router")
 
@@ -184,10 +192,11 @@ class DecoderLM(LMBase):
         m, aux = self._ffn(lp, h2, rules=rules)
         return x, self._scaled(m), kv, aux
 
-    def _ffn(self, lp, h, stats=None, rules=None):
-        """The layer's MLP, or its MoE block: (output, aux or None)."""
+    def _ffn(self, lp, h, stats=None, rules=None, spans=False):
+        """The layer's MLP, or its MoE block: (output, aux or None).
+        ``spans``: the MoE block records its inner spans."""
         if "moe" in lp:
-            return moe_block(lp["moe"], h, self.cfg, stats, rules)
+            return moe_block(lp["moe"], h, self.cfg, stats, rules, spans)
         return mlp_block(lp["mlp"], h, self.cfg, rules), None
 
     def _cross_layer(self, lp, x, delta, memory, rules=None):
@@ -338,23 +347,27 @@ class DecoderLM(LMBase):
             n_img = cache["cross_k"].shape[2]
             mem_len = torch.full_like(lengths, n_img)
         delta = None  # a block's output, added by the next norm
-        for kind, lp, idx in self._stack_walk(params):
-            x, h = apply_add_norm(lp["ln1"], x, delta, cfg, rules)
-            if kind == "self":
-                kc, vc = k_all[idx], v_all[idx]
-                k_new, v_new = decode_kv(lp["attn"], h, cfg, tables, rules)
-                cache_write(kc, pos, k_new[:, 0], rules, rows)
-                cache_write(vc, pos, v_new[:, 0], rules, rows)
-                a = attention_decode_block(
-                    lp["attn"], h, kc, vc, new_len, cfg, tables, rules
-                )
-            else:
-                ck, cv = cache["cross_k"][idx], cache["cross_v"][idx]
-                a = cross_attention_decode(lp["attn"], h, ck, cv, mem_len, cfg, rules)
-            x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg, rules)
-            stats = None if rules else self.moe_stats
-            ffn = self._ffn(lp, h2, stats, rules)[0]  # the aux is dropped
-            delta = self._scaled(ffn)
+        for n, (kind, lp, idx) in enumerate(self._stack_walk(params)):
+            with tracing.inner_span("attn", layer=n):
+                x, h = apply_add_norm(lp["ln1"], x, delta, cfg, rules)
+                if kind == "self":
+                    kc, vc = k_all[idx], v_all[idx]
+                    k_new, v_new = decode_kv(lp["attn"], h, cfg, tables, rules)
+                    cache_write(kc, pos, k_new[:, 0], rules, rows)
+                    cache_write(vc, pos, v_new[:, 0], rules, rows)
+                    a = attention_decode_block(
+                        lp["attn"], h, kc, vc, new_len, cfg, tables, rules
+                    )
+                else:
+                    ck, cv = cache["cross_k"][idx], cache["cross_v"][idx]
+                    a = cross_attention_decode(
+                        lp["attn"], h, ck, cv, mem_len, cfg, rules
+                    )
+            with tracing.inner_span("moe" if "moe" in lp else "ffn", layer=n):
+                x, h2 = apply_add_norm(lp["ln2"], x, self._scaled(a), cfg, rules)
+                stats = None if rules else self.moe_stats
+                ffn = self._ffn(lp, h2, stats, rules, spans=True)[0]  # aux dropped
+                delta = self._scaled(ffn)
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg, rules)
         logits = unembed(params["embed"], x, cfg, rules)
         return dict(cache, lengths=new_len), logits[:, 0]

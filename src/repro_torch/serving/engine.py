@@ -32,7 +32,19 @@ threads) and decode (the engine thread) run under
 default stream, so a staged cache is complete before the engine thread
 copies it in; ``_insert`` writes each cache leaf's slot axis, the one
 its ``cache_specs`` names ``"batch"``, where the reference guesses it
-from shapes; and ``decode_steps``/``prefills`` count the model calls.
+from shapes; ``decode_steps``/``prefills`` count the model calls; and
+while a profiler records, the engine's phases are spans
+(:mod:`repro_torch.tracing`): ``claim`` (a worker's non-empty claim:
+``worker``, ``items``, ``rids``), ``prefill`` (``rid``, ``tokens``),
+and per decode step ``step`` (``step``, ``active``, ``held``) over
+``release`` (``runs``, ``held``: done slots still behind an unfinished
+one), ``admit`` (``slots``, ``rids``, ``wait_ns`` since each prefill
+ended), ``upload``, ``decode`` (``step``), ``readback`` and ``retire``
+(``finished``).  The ``prefill`` and ``decode`` spans sit inside the
+hooks ``_prefill`` and ``_decode``, so a subclass that wraps a hook
+wraps them too; so that a ``step`` holds its release, an iteration of
+``_run`` with nothing active or staged releases and waits, and one
+that steps runs ``_step``.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..compat import resolve_device
 from ..config import ArchConfig
 from ..kernels import _build, ops
@@ -141,12 +154,16 @@ class InferenceEngine:
         self.decode_steps = 0  # batched decode_step calls (diagnostics)
         self.prefills = 0  # prefill calls (diagnostics)
         self._count_lock = threading.Lock()
+        self._worker_state = threading.local()  # the rid a worker prefills
 
     def _prefill(self, params, batch):
-        return self.model.prefill(params, batch, max_seq=self.ecfg.max_seq)
+        rid = getattr(self._worker_state, "rid", None)
+        with tracing.span("prefill", rid=rid, tokens=batch["tokens"].shape[1]):
+            return self.model.prefill(params, batch, max_seq=self.ecfg.max_seq)
 
     def _decode(self, params, cache, tokens):
-        return self.model.decode_step(params, cache, tokens)
+        with tracing.span("decode", step=self.decode_steps):
+            return self.model.decode_step(params, cache, tokens)
 
     # ------------------------------------------------------------------
     # ingestion worker: claim -> prefill -> stage
@@ -169,25 +186,30 @@ class InferenceEngine:
                 if claim is None:
                     time.sleep(0.0005)
                     continue
-                for req in claim.payloads:
-                    if req is None:
-                        continue
-                    cache1, logits = self._prefill(
-                        self._run_params, self._make_batch(req)
-                    )
-                    with self._count_lock:
-                        self.prefills += 1
-                    first = int(torch.argmax(logits[0])) if self.ecfg.greedy else 0
-                    rr = RequestResult(
-                        rid=req.rid,
-                        tokens=[first],
-                        t_arrival=req.t_arrival,
-                        t_first_token=time.perf_counter(),
-                        worker=wid,
-                    )
-                    with self._staged_lock:
-                        self._staged.append((cache1, rr, req.max_new_tokens))
-                self.sched.complete(wid, claim)
+                with tracing.span("claim", worker=wid) as sp:
+                    if sp:
+                        rids = [r.rid for r in claim.payloads if r is not None]
+                        sp.set(items=len(rids), rids=rids)
+                    for req in claim.payloads:
+                        if req is None:
+                            continue
+                        self._worker_state.rid = req.rid
+                        cache1, logits = self._prefill(
+                            self._run_params, self._make_batch(req)
+                        )
+                        with self._count_lock:
+                            self.prefills += 1
+                        first = int(torch.argmax(logits[0])) if self.ecfg.greedy else 0
+                        rr = RequestResult(
+                            rid=req.rid,
+                            tokens=[first],
+                            t_arrival=req.t_arrival,
+                            t_first_token=time.perf_counter(),
+                            worker=wid,
+                        )
+                        with self._staged_lock:
+                            self._staged.append((cache1, rr, req.max_new_tokens))
+                    self.sched.complete(wid, claim)
 
     # ------------------------------------------------------------------
     # slot ring: release (TAIL advance) + admit (HEAD advance)
@@ -207,6 +229,20 @@ class InferenceEngine:
         (paper line 37-41) -- ONE batched kernel launch for all R lanes:
         on a CUDA device over the pinned ring state in place, on the
         engine's stream, waiting on an event of that launch alone."""
+        with tracing.span("release") as sp:
+            first = len(self.release_events)
+            self._advance_tails()
+            if sp:
+                sp.set(runs=self.release_events[first:], held=self._held())
+
+    def _held(self) -> int:
+        """Finished slots not yet released: each lies behind an
+        unfinished one in its lane (none in free-list mode)."""
+        if not self.ecfg.contiguous_release:
+            return 0
+        return int(self.done_mask.sum())
+
+    def _advance_tails(self):
         if not self.ecfg.contiguous_release:
             return  # free-list mode: no tail semantics
         n = self.lane_slots
@@ -259,6 +295,61 @@ class InferenceEngine:
         if self.ecfg.contiguous_release:
             self.lane_head[lane] += 1
 
+    def _step(self) -> None:
+        """One iteration that steps: admit staged requests into released
+        slots, one batched decode step over all slots, retire finished
+        sequences.  The caller makes sure a slot is active or a request
+        staged, so one is active once the admission ran (every slot is
+        free when none is active)."""
+        with tracing.span("step", step=self.decode_steps) as st:
+            # 1) admit staged requests into released slots
+            slots = self._capacity_slots()
+            held = self._held() if st else 0  # behind an unfinished slot
+            with tracing.span("admit") as sp:
+                n = 0
+                for slot in slots:
+                    with self._staged_lock:
+                        item = self._staged.pop(0) if self._staged else None
+                    if item is None:
+                        break
+                    self._insert(slot, *item)
+                    n += 1
+                if sp:
+                    now = time.perf_counter()
+                    got = [self.slot_req[s] for s in slots[:n]]
+                    sp.set(slots=slots[:n], rids=[r.rid for r in got],
+                           wait_ns=[int(1e9 * (now - r.t_first_token)) for r in got])
+            active = [i for i, r in enumerate(self.slot_req) if r is not None]
+            # 2) one batched decode step over all slots
+            with tracing.span("upload"):
+                last = torch.tensor(
+                    [r.tokens[-1] if r else 0 for r in self.slot_req],
+                    dtype=torch.int32,
+                    device=self.device,
+                )[:, None]
+            self.cache, logits = self._decode(self._run_params, self.cache, last)
+            self.decode_steps += 1
+            with tracing.span("readback"):
+                nxt = torch.argmax(logits, -1).tolist()  # one sync per step
+            now = time.perf_counter()
+            # 3) retire finished sequences (set READ_DONE bits)
+            with tracing.span("retire") as sp:
+                finished = 0
+                for i in active:
+                    rr = self.slot_req[i]
+                    rr.tokens.append(int(nxt[i]))
+                    self.slot_budget[i] -= 1
+                    if int(nxt[i]) == self.ecfg.eos_token or self.slot_budget[i] <= 0:
+                        rr.t_done = now
+                        self.results.append(rr)
+                        self.slot_req[i] = None
+                        self.done_mask[i // self.lane_slots, i % self.lane_slots] = True
+                        finished += 1
+                if sp:
+                    sp.set(finished=finished)
+            if st:
+                st.set(active=len(active), held=held)
+
     # ------------------------------------------------------------------
     def run(
         self,
@@ -310,38 +401,12 @@ class InferenceEngine:
         n_total = len(requests)
         deadline = time.perf_counter() + timeout
         while len(self.results) < n_total and time.perf_counter() < deadline:
-            # 1) admit staged requests into released slots
-            slots = self._capacity_slots()
-            for slot in slots:
-                with self._staged_lock:
-                    item = self._staged.pop(0) if self._staged else None
-                if item is None:
-                    break
-                self._insert(slot, *item)
-            active = [i for i, r in enumerate(self.slot_req) if r is not None]
-            if not active:
+            if not self._staged and all(r is None for r in self.slot_req):
+                # nothing to admit or step: hand back what finished, wait
+                self._release()
                 time.sleep(0.001)
                 continue
-            # 2) one batched decode step over all slots
-            last = torch.tensor(
-                [r.tokens[-1] if r else 0 for r in self.slot_req],
-                dtype=torch.int32,
-                device=self.device,
-            )[:, None]
-            self.cache, logits = self._decode(self._run_params, self.cache, last)
-            self.decode_steps += 1
-            nxt = torch.argmax(logits, -1).tolist()  # one sync per step
-            now = time.perf_counter()
-            # 3) retire finished sequences (set READ_DONE bits)
-            for i in active:
-                rr = self.slot_req[i]
-                rr.tokens.append(int(nxt[i]))
-                self.slot_budget[i] -= 1
-                if int(nxt[i]) == self.ecfg.eos_token or self.slot_budget[i] <= 0:
-                    rr.t_done = now
-                    self.results.append(rr)
-                    self.slot_req[i] = None
-                    self.done_mask[i // self.lane_slots, i % self.lane_slots] = True
+            self._step()
         self._stop.set()
         self._release()  # hand back the trailing done-prefix (drain)
         for t in threads:
