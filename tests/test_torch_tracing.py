@@ -222,36 +222,48 @@ def test_held_slots_of_a_scripted_finish_order():
 
 
 def test_ring_stats_exact_under_a_producer_and_four_claimers():
-    """200,000 items through a 1,024-slot ring, one producer and four
+    """20,000 items through a 1,024-slot ring, one producer and four
     claiming threads, with the interpreter switching threads every
-    microsecond: every counter adds up exactly."""
-    total, ring = 200_000, CorecRing(1024)
+    microsecond: every counter adds up exactly, over the ring and in
+    each thread's own shard. The threads share one 30 s deadline and
+    stop at it."""
+    total, ring = 20_000, CorecRing(1024)
+    deadline = time.monotonic() + 30.0
+    stop = threading.Event()
     taken = [0]
     lock = threading.Lock()
     claims = [0] * 4
+    items = [0] * 4
+    shards = [None] * 5
 
     def produce():
         sent = 0
-        while sent < total:
+        while sent < total and not stop.is_set():
             n = ring.produce_batch(range(sent, min(sent + 64, total)))
             sent += n
             if not n:
                 time.sleep(0)
+        shards[4] = ring.stats.shard()
 
     def consume(w):
-        while True:
+        while not stop.is_set():
             with lock:
                 if taken[0] >= total:
-                    return
+                    break
             c = ring.claim(8)
             if c is None:
+                # An empty poll helps release, as a worker's does: the
+                # last completions' release may have lost the trylock.
+                ring.try_release()
                 time.sleep(0)
                 continue
             claims[w] += 1
+            items[w] += len(c)
             with lock:
                 taken[0] += len(c)
             ring.complete(c)
             ring.try_release()
+        shards[w] = ring.stats.shard()
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -262,9 +274,10 @@ def test_ring_stats_exact_under_a_producer_and_four_claimers():
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=240)
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
         assert not any(t.is_alive() for t in threads)
     finally:
+        stop.set()
         sys.setswitchinterval(old)
     while ring.tail < total:
         assert ring.try_release() > 0
@@ -272,28 +285,38 @@ def test_ring_stats_exact_under_a_producer_and_four_claimers():
     assert s["produced"] == s["claimed_items"] == s["released_items"] == total
     assert s["claims"] == sum(claims) == ring.stats.claims
     assert s["atomic_ops"] > 0 and list(s) == list(ring.stats.snapshot())
+    assert shards[4].produced == total
+    assert [(c.claims, c.claimed_items) for c in shards[:4]] == list(zip(claims, items))
 
 
 def test_ring_stats_keep_counts_whose_increment_spans_a_thread_switch():
     """``atomic_ops += self._done.set_range(...)`` reads the count before
-    the call and stores it after: on one shared counter the threads
-    switching inside lose most updates (8 x 5,000 kept ~5,000 in a
-    trial); each thread's own shard keeps every one."""
-    ring = CorecRing(64)
+    the call and stores it after. Here every thread reads, then waits at
+    a barrier until all 8 have read before any of them stores: one
+    shared counter keeps about one update a round (of 8 x 500, about
+    500), while each thread's own shard keeps every one. The threads
+    share one 30 s deadline; at it the barrier breaks and they stop."""
+    ring, n, rounds = CorecRing(64), 8, 500
+    deadline = time.monotonic() + 30.0
+    barrier = threading.Barrier(n)
 
     def word_ops():
-        time.sleep(0)  # a thread switch between the read and the store
+        barrier.wait()  # a thread switch between every read and its store
         return 1
 
     def count():
-        for _ in range(5_000):
-            ring.stats.shard().atomic_ops += word_ops()
+        try:
+            for _ in range(rounds):
+                ring.stats.shard().atomic_ops += word_ops()
+        except threading.BrokenBarrierError:
+            return
 
-    threads = [threading.Thread(target=count, daemon=True) for _ in range(8)]
+    threads = [threading.Thread(target=count, daemon=True) for _ in range(n)]
     for t in threads:
         t.start()
     for t in threads:
-        t.join(timeout=120)
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    barrier.abort()
     assert not any(t.is_alive() for t in threads)
-    assert ring.stats.atomic_ops == 40_000
-    assert ring.stats.snapshot()["atomic_ops"] == 40_000
+    assert ring.stats.atomic_ops == n * rounds
+    assert ring.stats.snapshot()["atomic_ops"] == n * rounds
