@@ -1,6 +1,6 @@
-"""The control of ``correct``: the reference computed in fp8, the
-nearest precision below the configurations' bf16, put in the program's
-place, has to fail a cell's limits.
+"""The control of ``correct``: the configuration's reference computed
+in fp8, the nearest precision below the configurations' bf16, put in
+the program's place, has to fail a cell's limits.
 
     python3 bench/control.py --workload <cell> --seconds 30 --seeds 1 2 3
 
@@ -25,7 +25,7 @@ import torch  # noqa: E402
 
 from bench import spec  # noqa: E402
 from bench.reference.judge import gap_stats  # noqa: E402
-from bench.weights import make_params  # noqa: E402
+from bench.weights import make_params, rules_of  # noqa: E402
 
 
 def control_readings(
@@ -41,8 +41,9 @@ def control_readings(
     rec = driver.run(cell, config, seed, seconds, False, device=device)
     cfg = ArchConfig(**config["config"])
     dev, dtype = torch.device(device), getattr(torch, cfg.dtype)
-    params = make_params(build_model(cfg), seed, dev, dtype)
-    ctl = gap_stats(params, config["config"], rec["sample"], control=True)
+    reference = spec.load_reference(config)
+    params = make_params(build_model(cfg), seed, dev, dtype, rules_of(reference))
+    ctl = gap_stats(reference, params, config["config"], rec["sample"], control=True)
     ctl = driver.compared(ctl)
     prog = driver.compared(rec["judged"])
     limits = cell["check"]["limits"]

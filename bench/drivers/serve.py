@@ -19,7 +19,8 @@ Phases: weights from the seed on the device, the engine, a warm-up run
 over the cell's largest and smallest prompts (set-up ends here, at the
 first timed request's due time), the window (plus, with ``trace``, a
 traced stretch of the same traffic after it), the drain, and once the
-program's state is freed the reference over a sample of the answers.
+program's state is freed the configuration's reference
+(``bench.spec.load_reference``) over a sample of the answers.
 The engine serves on a thread of its own; the process's main thread
 starts and stops the profiler.
 
@@ -52,10 +53,11 @@ from repro_torch.config import ArchConfig
 from repro_torch.models.api import build_model
 from repro_torch.serving import EngineConfig, InferenceEngine, Request
 
+from bench import spec
 from bench import traffic as tr
 from bench.reference.judge import gap_stats
 from bench.trace import Tracer
-from bench.weights import make_params
+from bench.weights import make_params, rules_of
 
 __all__ = ["run", "compared", "BenchEngine"]
 
@@ -242,7 +244,10 @@ def run(cell: dict, config: dict, seed: int, seconds: float, trace: bool,
     traffic = cell["traffic"]
     tail = cell["trace_s"] if trace else 0.0
 
-    params = make_params(build_model(cfg), seed, dev, getattr(torch, cfg.dtype))
+    reference = spec.load_reference(config)
+    params = make_params(
+        build_model(cfg), seed, dev, getattr(torch, cfg.dtype), rules_of(reference)
+    )
     log = _Log(trace, ecfg.n_slots, dev)
     eng = BenchEngine(cfg, ecfg, params=params, device=dev, log=log)
 
@@ -323,7 +328,7 @@ def run(cell: dict, config: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    record.update(_judge(cell, cfg_d, params, record, reqs, seed, ring))
+    record.update(_judge(cell, cfg_d, reference, params, record, reqs, seed, ring))
     return record
 
 
@@ -392,9 +397,10 @@ def compared(stats: dict) -> dict:
     return {"logit_gap": stats.get("widest"), "logit_gap_p90": stats.get("p90")}
 
 
-def _judge(cell, cfg_d, params, record, reqs, seed, ring) -> dict:
-    """``correct`` and the numbers compared, each beside its limit (the
-    sample judged stays in ``record["sample"]``)."""
+def _judge(cell, cfg_d, reference, params, record, reqs, seed, ring) -> dict:
+    """``correct`` and the numbers compared, each beside its limit, the
+    sample judged by the configuration's ``reference`` (the sample stays
+    in ``record["sample"]``)."""
     rows = record["requests"]
     due = [r for r in rows if r["in_window"]]
     failed = sum(r["n_tokens"] != r["new_tokens"] for r in due)
@@ -418,7 +424,7 @@ def _judge(cell, cfg_d, params, record, reqs, seed, ring) -> dict:
         sample = [longest] + [rest[i] for i in sorted(pick)]
         t = time.perf_counter()
         pairs = [(reqs[r["rid"]][0].prompt, r["tokens"]) for r in sample]
-        g = gap_stats(params, cfg_d, pairs)
+        g = gap_stats(reference, params, cfg_d, pairs)
         judged = dict(g, seconds=time.perf_counter() - t)
         record["sample"] = [(reqs[r["rid"]][0].prompt, r["tokens"]) for r in sample]
     numbers = compared(g)

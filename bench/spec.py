@@ -3,9 +3,14 @@
 ``BENCHMARK.json`` at the checkout's root lists the cells and metrics;
 each cell's file is ``bench/workloads/<cell>.json``, its configuration
 ``bench/configs/<config>.json``, its driver ``bench/drivers/<driver>.py``
-and each metric's reader ``bench/metrics/<metric>.py``.  A later cell,
-configuration, driver or metric is a file added beside these; nothing
-here names one.
+and each metric's reader ``bench/metrics/<metric>.py``.  A
+configuration's plain reference is the module of ``bench/reference/``
+that its ``"reference"`` key names (``decoder`` where the key is
+absent), which may declare the weight rules of the leaves its family
+adds (``bench/weights.py``), and each cell's CPU stand-in for the tests
+is ``bench/tiny/<cell>.json`` (``bench/testing.py``).  A later cell,
+configuration, reference, stand-in, driver or metric is a file added
+beside these; nothing here names one.
 
 ``bench/parked.json`` holds, in ``BENCHMARK.json``'s form, the entries
 of cells taken out of the benchmark whose files stay: the harness still
@@ -29,6 +34,7 @@ __all__ = [
     "load_cell",
     "load_driver",
     "load_module",
+    "load_reference",
     "metrics_for",
 ]
 
@@ -79,6 +85,17 @@ def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json") -> tuple:
     cell = _json(BENCH / "workloads" / f"{name}.json")
     config = _json(BENCH / "configs" / (entry["config"] + ".json"))
     return entry, cell, config
+
+
+def load_reference(config: dict):
+    """The plain reference module of a loaded configuration: the module
+    ``bench.reference.<name>`` that its ``"reference"`` key names
+    (``decoder`` without the key).  It exposes
+    ``logits(params, cfg, tokens, start, linear)`` with
+    ``bench/reference/decoder.py``'s meaning and units, and may declare
+    ``WEIGHT_RULES`` (``bench/weights.py``)."""
+    name = config.get("reference", "decoder")
+    return importlib.import_module("bench.reference." + name)
 
 
 def _reader(metric: str):

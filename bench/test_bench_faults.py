@@ -2,12 +2,13 @@
 the fp8 control has to fail each cell's limits.
 
 On the CPU, whole runs of each cell on its tiny configuration, the
-run's look for a chip skipped, with the port's decode step broken
-underneath in each way a serving cell can break: a step that returns
-its state unchanged, half of the batch left out, a token altered where
-it is produced.  (The exchange between chips has no place in a cell on
-one chip.)  On the card (``cuda`` marker, skipped here), the control at
-each cell's own size on three seeds::
+run's look for a chip skipped, with the decode step of the port's
+model class that serves the cell broken underneath in each way a
+serving cell can break: a step that returns its state unchanged, half
+of the batch left out, a token altered where it is produced.  (The
+exchange between chips has no place in a cell on one chip.)  On the
+card (``cuda`` marker, skipped here), the control at each cell's own
+size on three seeds::
 
     PYTHONPATH=src python -m pytest -q -m cuda bench/test_bench_faults.py
 """
@@ -28,10 +29,11 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 
 def _unchanged(step):
     def fault(self, params, cache, tokens, rules=None):
-        k, v, n = cache["k"].clone(), cache["v"].clone(), cache["lengths"]
+        n = cache["lengths"]
+        kept = {k: t.clone() for k, t in cache.items() if k != "lengths"}
         _, logits = step(self, params, cache, tokens, rules)
-        cache["k"].copy_(k)
-        cache["v"].copy_(v)
+        for k, t in kept.items():  # every state the step wrote, put back
+            cache[k].copy_(t)
         return dict(cache, lengths=n), logits
 
     return fault
@@ -60,13 +62,21 @@ FAULTS = {"state_unchanged": _unchanged, "half_batch": _half_batch,
           "token_altered": _token_altered}
 
 
+def model_class(config: dict):
+    """The port's model class that serves ``config``: the one a fault
+    breaks."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.models.api import build_model
+
+    return type(build_model(ArchConfig(**config["config"])))
+
+
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_broken_decode_step_is_not_correct(name, fault, monkeypatch):
-    from repro_torch.models.transformer import DecoderLM
-
-    monkeypatch.setattr(DecoderLM, "decode_step", FAULTS[fault](DecoderLM.decode_step))
     _, cell, config = tiny_cell(name)
+    model = model_class(config)
+    monkeypatch.setattr(model, "decode_step", FAULTS[fault](model.decode_step))
     cell["check"]["sample"] = 32  # a fault may spare some slots: judge many answers
     driver = spec.load_driver(cell)
     rec = driver.run(cell, config, 2**31 + 9, TINY_SECONDS, False, device="cpu")

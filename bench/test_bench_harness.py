@@ -161,26 +161,34 @@ def test_closed_stream_blocks_of_quantiles():
 # ---------------------------------------------------------------- reference
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "grok-1-314b"])
+#: every configuration file, each tested through one of its cells' stand-ins
+CONFIGS = sorted(p.stem for p in (spec.BENCH / "configs").glob("*.json"))
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_reference_matches_port_at_tiny_size(name):
-    """The plain reference against the port's plain forward (fp32, MoE
-    drop-free): the same weights give the same logits."""
+    """Each configuration's plain reference against the port's plain
+    forward (fp32, MoE drop-free) on one of its cells' tiny stand-ins,
+    parked cells included: the same weights give the same logits."""
     from repro_torch.models.api import build_model
     from repro_torch.models.layers import unembed
     from repro_torch.config import ArchConfig
 
-    from bench.weights import make_params
+    from bench.weights import make_params, rules_of
 
-    _, _, config = tiny_cell(next(c for c in CELLS if c.startswith(name + ".")))
+    _, _, config = tiny_cell(next(w["name"] for w in BENCH["workloads"]
+                                  if w["config"] == name))
+    reference = spec.load_reference(config)
     cfg = ArchConfig(**config["config"])
     model = build_model(cfg)
-    params = make_params(model, 11, torch.device("cpu"), torch.float32)
+    params = make_params(model, 11, torch.device("cpu"), torch.float32,
+                         rules_of(reference))
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (40,), generator=gen)
     with torch.inference_mode():
-        x, _, _ = model.forward(params, toks[None])
+        x = model.forward(params, toks[None])[0]
         port = unembed(params["embed"], x, cfg)[0]
-    ref = decoder.logits(params, config["config"], toks.tolist(), 0)
+    ref = reference.logits(params, config["config"], toks.tolist(), 0)
     torch.testing.assert_close(ref, port, rtol=1e-4, atol=1e-4)
 
 
