@@ -26,7 +26,8 @@ Layout:
   sharding.py          logical-axis sharding rules -> partition specs and
                        DTensor placements (DeviceMesh or AbstractMesh)
   core/{atomics,ring,baseline}.py  the host-side COREC ring (own copies)
-  config.py, configs/  ArchConfig and the ten configurations (own copies)
+  config.py, configs/  ArchConfig and the ten configurations (own copies),
+                       and the port's own granite-4.0-h-small
   models/              the dense decoder (spec, layers, transformer),
                        params_from_reference, build_model
   serving/             EngineConfig / InferenceEngine behind COREC or

@@ -72,6 +72,20 @@ class ArchConfig:
     attn_tp: Optional[bool] = None  # None = auto (heads % model_size == 0)
     expert_parallel: Optional[bool] = None  # None = auto
     seq_shard_cache: bool = True  # SP over the KV cache seq dim
+    # Mamba-2 / attention pattern stack with an MoE FFN after every mixer
+    # (granite-4.0-h; port only, the JAX package has none of these): the
+    # attention layers' places, every other layer Mamba-2; empty = no pattern
+    attn_layer_ids: Tuple[int, ...] = ()
+    shared_ff: int = 0  # a shared SwiGLU expert of this width beside the routed ones
+    embedding_multiplier: float = 1.0  # the token embedding times this
+    residual_multiplier: float = 1.0  # each block's output times this, then added
+    attention_scale: Optional[float] = None  # scores' scale; None = 1/sqrt(d_head)
+    logits_scaling: float = 1.0  # the logits divided by this
+    mamba_gate_first: bool = False  # gated RMSNorm: rms(y silu(z)) w, else rms(y) w silu(z)
+
+    def __post_init__(self):
+        # a configuration read back from JSON holds a list
+        object.__setattr__(self, "attn_layer_ids", tuple(self.attn_layer_ids))
 
     # ------------------------------------------------------------------
     @property
@@ -87,6 +101,11 @@ class ArchConfig:
         return self.enc_layers > 0
 
     @property
+    def is_pattern_hybrid(self) -> bool:
+        """Mamba-2 layers with attention layers at ``attn_layer_ids``."""
+        return self.ssm_state > 0 and bool(self.attn_layer_ids)
+
+    @property
     def is_attention_free(self) -> bool:
         return self.rwkv
 
@@ -98,8 +117,31 @@ class ArchConfig:
     def vocab_padded(self, multiple: int = 256) -> int:
         return _round_up(self.vocab, multiple)
 
+    def _pattern_params(self, active: bool) -> int:
+        """Every leaf of a pattern hybrid, norms included (one B/C group,
+        a conv of width 4 with bias); ``active``: a token's ``top_k``
+        routed experts in place of all of them."""
+        d, V = self.d_model, self.vocab_padded()
+        H, Hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        d_in = self.ssm_expand * d
+        heads = d_in // self.ssm_head_dim
+        conv = d_in + 2 * self.ssm_state
+        # in_proj [z | xBC | dt], conv weight and bias, A_log, D, dt_bias,
+        # the gated norm's weight, out_proj
+        mamba = d * (d_in + conv + heads) + 5 * conv + 3 * heads + d_in + d_in * d
+        attn = d * (H + 2 * Hkv) * dh + H * dh * d
+        experts = self.top_k if active else self.n_experts
+        ffn = d * self.n_experts + experts * 3 * d * self.d_ff + 3 * d * self.shared_ff
+        n_attn = len(self.attn_layer_ids)
+        layers = (self.n_layers - n_attn) * mamba + n_attn * attn
+        layers += self.n_layers * (ffn + 2 * d)  # and the two norms a layer
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return emb + layers + d
+
     def n_params(self) -> int:
         """Total parameter count (embedding + layers), analytic."""
+        if self.is_pattern_hybrid:
+            return self._pattern_params(active=False)
         d, ff, V = self.d_model, self.d_ff, self.vocab_padded()
         dh = self.head_dim
         H, Hkv = self.n_heads, self.n_kv_heads
@@ -132,6 +174,8 @@ class ArchConfig:
 
     def n_active_params(self) -> int:
         """Params touched per token (MoE: only top_k experts)."""
+        if self.is_pattern_hybrid:
+            return self._pattern_params(active=True)
         if not self.is_moe:
             return self.n_params()
         d, ff = self.d_model, self.d_ff

@@ -1,7 +1,9 @@
 """Assigned architecture registry.
 
 ``get(name)`` -> exact ArchConfig; ``get_tiny(name)`` -> reduced same-family
-config for CPU smoke tests; ``ALL_ARCHS`` lists the 10 assigned ids.
+config for CPU smoke tests; ``ALL_ARCHS`` lists the 10 assigned ids, the
+JAX package's.  ``get`` also knows the port's own configurations
+(``PORT_ARCHS``), which the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ ALL_ARCHS: List[str] = [
     "zamba2-1.2b",
 ]
 
+#: configurations of the port alone (not in the JAX package)
+PORT_ARCHS: List[str] = ["granite-4.0-h-small"]
+
 _MODULES = {
     "grok-1-314b": "grok_1_314b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
@@ -35,6 +40,7 @@ _MODULES = {
     "whisper-large-v3": "whisper_large_v3",
     "rwkv6-3b": "rwkv6_3b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 

@@ -59,12 +59,20 @@
 //
 // One token (T == 1, every decode step of zamba2) is a bandwidth job,
 // not a scan: the launcher dispatches it to a kernel of its own, grid
-// (head, batch) of 256 threads, 16 lanes per state row.  Each lane
+// (head, batch) of 256 threads, 16 lanes per state row, each lane 4
+// columns (N <= 64) or 8 (N <= 128).  Each lane
 // reads its part of a row once (16-byte loads where N % 4 == 0), forms
 // S' = exp(A dt) S + dt x B^T in registers, writes it once, and the
 // row's y_p = S'_p . C is reduced with warp shuffles: no shared memory,
 // no block barrier.  It computes what the chunked route computes for
 // one token.
+//
+// Widths: P <= 64 (four warps of 16 state rows in passes 1 and 3, 16 row
+// slots of the decode kernel), N <= 128.  The tensor-core passes hold N
+// in registers as 16-wide tiles, 4 of them up to N = 64 and 8 up to 128
+// (a template argument each, so zamba2's N = 64 runs the code it ran
+// before); granite-4.0-h-small's N = 128 doubles each head's fp32 state
+// to 32 KB.
 //
 // Layouts: the model's.  x [B, T, H, P] (fp32 or bf16), dt [B, T, H]
 // fp32, A [H] fp32, Bm/Cm [B, T, G, N] in x's type, s0 and s_out
@@ -91,7 +99,8 @@
 // What keeps the chain above the bound is latency: each pass is a
 // load, a short product and a store per block, and the three follow
 // one another.  A decode step (16 slots x 64 heads x 16 KB of fp32
-// state read and written) moves 33.8 MB: 10.1 us, bytes.
+// state read and written) moves 33.8 MB: 10.1 us, bytes; one of
+// granite-4.0-h-small's (32 slots x 128 heads x 32 KB) 268.4 MB: 80.1 us.
 //
 // Plain C interface (bound with ctypes): type code 0 = fp32, 1 = bf16.
 // The launcher sets each kernel's dynamic shared-memory limit to the
@@ -155,7 +164,9 @@ __device__ __forceinline__ float chunk_lcum(const float* dtb, int H, float a,
 // Pass 1: dS = xdec^T B with xdec[s, p] = exp(lcum_end - lcum_s) dt_s
 // x[s, p].  Warp w owns state rows p in [16 w, 16 w + 16); A fragments
 // (xdec^T) are built in registers from x in shared memory, B fragments
-// by ldmatrix.trans from B stored [token][n].
+// by ldmatrix.trans from B stored [token][n].  kNT: 16-wide tiles of N
+// the registers hold (4: N <= 64; 8: N <= 128).
+template <int kNT>
 __global__ void __launch_bounds__(kThreads)
     ssd_state_mma_kernel(const bf16* __restrict__ x,
                          const float* __restrict__ dt,
@@ -200,9 +211,10 @@ __global__ void __launch_bounds__(kThreads)
   if (p0 >= Pp) return;
   const int gr = lane >> 2, tg = lane & 3;
   const int pa = p0 + gr, pb = pa + 8;
-  float acc[8][4];
+  float acc[2 * kNT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < 2 * kNT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kC / 16; ++kk) {
     const int s0 = 16 * kk + 2 * tg;
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     a[2] = pack_bf16(f8 * xv(s0 + 8, pa), f9 * xv(s0 + 9, pa));
     a[3] = pack_bf16(f8 * xv(s0 + 8, pb), f9 * xv(s0 + 9, pb));
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < kNT; ++np) {
       if (16 * np < Np) {
         uint32_t bf[4];
         ldsm_x4_t(bf, bs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN +
@@ -228,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
                            static_cast<size_t>(d.P) * d.N;
   const bool pairs = d.N % 2 == 0;  // 8-byte stores: rows of even width
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < 2 * kNT; ++j) {
     const int n = 8 * j + 2 * tg;
     if (n >= d.N) continue;
     const bool two = n + 1 < d.N;
@@ -274,7 +286,9 @@ __host__ __device__ inline size_t out_mma_bytes(int P, int N, int hpb) {
 // warp w of a group owns output rows t in [16 w, 16 w + 16).  Group 0
 // computes CB (its accumulators are the A fragments of G x as they
 // lie) and hands them to the other groups through shared memory; per
-// head y = exp(lcum_t) (C S^T) + G x, both on the tensor cores.
+// head y = exp(lcum_t) (C S^T) + G x, both on the tensor cores.  kNT as
+// in pass 1: C's fragments span N.
+template <int kNT>
 __global__ void __launch_bounds__(kMaxHeadsPerBlock * kThreads)
     ssd_out_mma_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ dt,
@@ -332,9 +346,9 @@ __global__ void __launch_bounds__(kMaxHeadsPerBlock * kThreads)
   const int tw = 16 * warp;
   const int ta = tw + gr, tb = ta + 8;
   // C's A fragments (rows ta, tb; all of N) and CB over s < tw + 16
-  uint32_t ca[4][4];
+  uint32_t ca[kNT][4];
 #pragma unroll
-  for (int kn = 0; kn < 4; ++kn)
+  for (int kn = 0; kn < kNT; ++kn)
     if (16 * kn < Np)
       ldsm_x4(ca[kn], cs + (tw + (lane & 15)) * LDN + 16 * kn + (lane >> 4) * 8);
   float cb[8][4];
@@ -345,7 +359,7 @@ __global__ void __launch_bounds__(kMaxHeadsPerBlock * kThreads)
     for (int np = 0; np < 4; ++np) {
       if (np > warp) continue;
 #pragma unroll
-      for (int kn = 0; kn < 4; ++kn) {
+      for (int kn = 0; kn < kNT; ++kn) {
         if (16 * kn >= Np) continue;
         uint32_t bf[4];
         ldsm_x4(bf, bs + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LDN +
@@ -399,7 +413,7 @@ __global__ void __launch_bounds__(kMaxHeadsPerBlock * kThreads)
     // C S^T: B fragments from the state stored [p][n], its high and its
     // low bf16 part
 #pragma unroll
-    for (int kn = 0; kn < 4; ++kn) {
+    for (int kn = 0; kn < kNT; ++kn) {
       if (16 * kn >= Np) continue;
 #pragma unroll
       for (int pp = 0; pp < 4; ++pp) {
@@ -611,9 +625,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------ T == 1
 
-// One token: lane l of a row's 16 owns columns 4 l .. 4 l + 3 (V4, N a
-// multiple of 4: one 16-byte load and store per row) or l + 16 k.
-template <typename T, bool V4>
+// One token: lane l of a row's 16 owns kCols columns (4: N <= 64; 8:
+// N <= 128): 64 q + 4 l .. 64 q + 4 l + 3 for each quarter q < kCols / 4
+// (V4, N a multiple of 4: one 16-byte load and store per row and
+// quarter), else l + 16 k.
+template <typename T, bool V4, int kCols>
 __global__ void __launch_bounds__(kDecThreads)
     ssd_decode_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const T* __restrict__ Bm,
@@ -628,10 +644,11 @@ __global__ void __launch_bounds__(kDecThreads)
   const T* Bb = Bm + b * st.bb + static_cast<long long>(g) * N;
   const T* Cb = Cm + b * st.cb + static_cast<long long>(g) * N;
   const T* xb = x + b * st.xb + static_cast<long long>(h) * P;
-  float bv[4], cv[4];
+  auto col = [&](int k) { return V4 ? 64 * (k >> 2) + 4 * l + (k & 3) : l + 16 * k; };
+  float bv[kCols], cv[kCols];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int n = V4 ? 4 * l + k : l + 16 * k;
+  for (int k = 0; k < kCols; ++k) {
+    const int n = col(k);
     bv[k] = n < N ? to_f(Bb[n]) : 0.f;
     cv[k] = n < N ? to_f(Cb[n]) : 0.f;
   }
@@ -639,21 +656,26 @@ __global__ void __launch_bounds__(kDecThreads)
   const float* src = s0 + base;
   float* dst = s_out + base;
   constexpr int kRows = 4;  // P <= 64 rows over 16 row slots
-  float s[kRows][4];
+  float s[kRows][kCols];
   float xp[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {  // every load first, then the math
     const int p = r0 + 16 * i;
     xp[i] = p < P ? to_f(xb[p]) : 0.f;
     if (V4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (p < P && 4 * l < N)
-        v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(p) * N + 4 * l);
-      s[i][0] = v.x, s[i][1] = v.y, s[i][2] = v.z, s[i][3] = v.w;
+#pragma unroll
+      for (int q = 0; q < kCols / 4; ++q) {
+        const int n = col(4 * q);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p < P && n < N)
+          v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(p) * N + n);
+        s[i][4 * q] = v.x, s[i][4 * q + 1] = v.y;
+        s[i][4 * q + 2] = v.z, s[i][4 * q + 3] = v.w;
+      }
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = l + 16 * k;
+      for (int k = 0; k < kCols; ++k) {
+        const int n = col(k);
         s[i][k] = p < P && n < N ? src[static_cast<size_t>(p) * N + n] : 0.f;
       }
     }
@@ -664,7 +686,7 @@ __global__ void __launch_bounds__(kDecThreads)
     const float coef = d * xp[i];
     float part = 0.f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < kCols; ++k) {
       s[i][k] = fmaf(dA, s[i][k], coef * bv[k]);
       part = fmaf(s[i][k], cv[k], part);
     }
@@ -674,13 +696,18 @@ __global__ void __launch_bounds__(kDecThreads)
     if (p >= P) continue;
     if (l == 0) y[(static_cast<size_t>(b) * H + h) * P + p] = from_f<T>(part);
     if (V4) {
-      if (4 * l < N)
-        *reinterpret_cast<float4*>(dst + static_cast<size_t>(p) * N + 4 * l) =
-            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+#pragma unroll
+      for (int q = 0; q < kCols / 4; ++q) {
+        const int n = col(4 * q);
+        if (n < N)
+          *reinterpret_cast<float4*>(dst + static_cast<size_t>(p) * N + n) =
+              make_float4(s[i][4 * q], s[i][4 * q + 1], s[i][4 * q + 2],
+                          s[i][4 * q + 3]);
+      }
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = l + 16 * k;
+      for (int k = 0; k < kCols; ++k) {
+        const int n = col(k);
         if (n < N) dst[static_cast<size_t>(p) * N + n] = s[i][k];
       }
     }
@@ -710,16 +737,12 @@ cudaError_t launch_decode(const void* x, const float* dt, const float* A,
                           int G, int P, int N, cudaStream_t stream) {
   const dim3 grid(H, B);
   const bool v4 = N % 4 == 0 && aligned16(s0) && aligned16(s_out);
-  if (v4)
-    ssd_decode_kernel<T, true><<<grid, kDecThreads, 0, stream>>>(
-        static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-        static_cast<const T*>(Cm), s0, static_cast<T*>(y), s_out, st, H, G, P,
-        N);
-  else
-    ssd_decode_kernel<T, false><<<grid, kDecThreads, 0, stream>>>(
-        static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-        static_cast<const T*>(Cm), s0, static_cast<T*>(y), s_out, st, H, G, P,
-        N);
+  const bool wide = N > 64;
+  auto* kernel = v4 ? (wide ? ssd_decode_kernel<T, true, 8> : ssd_decode_kernel<T, true, 4>)
+                    : (wide ? ssd_decode_kernel<T, false, 8> : ssd_decode_kernel<T, false, 4>);
+  kernel<<<grid, kDecThreads, 0, stream>>>(
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), s0, static_cast<T*>(y), s_out, st, H, G, P, N);
   return cudaGetLastError();
 }
 
@@ -748,13 +771,17 @@ cudaError_t launch_chunked(const T* x, const float* dt, const float* A,
   // follow one another with nothing between them
   size_t bytes1, bytes3;
   cudaError_t err;
+  // the MMA passes' N tiles in registers: 4 up to N = 64, else 8
+  const bool wide = d.N > 64;
+  auto* state_mma = wide ? ssd_state_mma_kernel<8> : ssd_state_mma_kernel<4>;
+  auto* out_mma = wide ? ssd_out_mma_kernel<8> : ssd_out_mma_kernel<4>;
   if constexpr (kMma) {
     bytes1 = static_cast<size_t>(kC) *
                  (round16(d.P) + round16(d.N) + 2 * kPadH) * 2 +
              2 * kC * sizeof(float);
     bytes3 = out_mma_bytes(d.P, d.N, d.hpb);
-    err = allow_dynamic_smem(ssd_state_mma_kernel, bytes1);
-    if (err == cudaSuccess) err = allow_dynamic_smem(ssd_out_mma_kernel, bytes3);
+    err = allow_dynamic_smem(state_mma, bytes1);
+    if (err == cudaSuccess) err = allow_dynamic_smem(out_mma, bytes3);
   } else {
     bytes1 = sizeof(float) *
              (static_cast<size_t>(kC) * (round4(d.P) + round4(d.N) + 8) +
@@ -768,8 +795,8 @@ cudaError_t launch_chunked(const T* x, const float* dt, const float* A,
   if (err != cudaSuccess) return err;
   if (d.nc > 0) {
     if constexpr (kMma)
-      ssd_state_mma_kernel<<<grid1, kThreads, bytes1, stream>>>(
-          x, dt, A, Bm, st, d, vec, pad, delta, dec);
+      state_mma<<<grid1, kThreads, bytes1, stream>>>(x, dt, A, Bm, st, d, vec,
+                                                     pad, delta, dec);
     else
       ssd_state_scalar_kernel<<<grid1, kThreads, bytes1, stream>>>(
           x, dt, A, Bm, st, d, vec, delta, dec);
@@ -783,8 +810,8 @@ cudaError_t launch_chunked(const T* x, const float* dt, const float* A,
   if (err != cudaSuccess || d.nc == 0) return err;
   const T* si = s_in;
   if constexpr (kMma)
-    return launch_pdl(ssd_out_mma_kernel, grid3, dim3(d.hpb * kThreads), bytes3,
-                      stream, x, dt, A, Bm, Cm, si, y, st, d, vec, vec_s, pad);
+    return launch_pdl(out_mma, grid3, dim3(d.hpb * kThreads), bytes3, stream, x,
+                      dt, A, Bm, Cm, si, y, st, d, vec, vec_s, pad);
   else
     return launch_pdl(ssd_out_scalar_kernel, grid3, dim3(kThreads), bytes3,
                       stream, x, dt, A, Bm, Cm, si, y, st, d, vec, vec_s);
@@ -807,7 +834,7 @@ extern "C" int ssd_launch(const void* x, const float* dt, const float* A,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-  if (G <= 0 || H % G || P <= 0 || P > 64 || N <= 0 || N > 64 ||
+  if (G <= 0 || H % G || P <= 0 || P > 64 || N <= 0 || N > 128 ||
       (type_code != 0 && type_code != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{x_sb, x_st, b_sb, b_st, c_sb, c_st};

@@ -24,7 +24,9 @@ Bound on the H100 at zamba2-1.2b's prefill (B = 1, T = 384, 64 heads,
 P = N = 64, G = 1): 8,585,472 bytes, 2.563 us at 3.35 TB/s; 0.61 GFLOP,
 9.06 us at the 67 TFLOP/s fp32 scalar rate, 0.61 us at the 989 TFLOP/s
 bf16 tensor rate.  At a decode step (16 slots) the fp32 states alone
-are 33.6 MB read and written: 10.1 us, bytes.
+are 33.6 MB read and written: 10.1 us, bytes.  At granite-4.0-h-small's
+decode step (32 slots, 128 heads, P = 64, N = 128) they are 268.4 MB:
+80.1 us, bytes.
 """
 
 from __future__ import annotations
@@ -39,11 +41,16 @@ from .decode_attention import SMS
 from .rmsnorm import DTYPE_CODES
 from .scan_workspace import state_pass_blocks, workspace
 
-__all__ = ["ssd_cuda", "ssd_plan", "heads_per_block", "SsdPlan", "MAX_CHUNK", "MAX_DIM"]
+__all__ = [
+    "ssd_cuda", "ssd_plan", "heads_per_block", "SsdPlan", "MAX_CHUNK", "MAX_P", "MAX_N",
+]
 
-#: the largest chunk, head dim P and state width N the kernel takes
+#: the largest chunk the kernel takes
 MAX_CHUNK = 64
-MAX_DIM = 64
+#: the largest head dim P (four warps of 16 state rows) and state width N
+#: (eight 16-wide register tiles) the kernel takes
+MAX_P = 64
+MAX_N = 128
 #: tokens per chunk of the kernels' passes, whatever chunk the caller asks
 CHUNK_TILE = 64
 #: the most heads of one B/C group an output block serves (a group of
@@ -178,8 +185,10 @@ def ssd_cuda(
             f"{tuple(dt.shape)}, A {tuple(A.shape)} and state "
             f"{tuple(state.shape)} disagree, or H is not a multiple of G"
         )
-    if not (0 < P <= MAX_DIM and (P <= 16 or P % 16 == 0) and 0 < N <= MAX_DIM):
-        raise ValueError(f"ssd_cuda: P={P}, N={N}: at most {MAX_DIM}, 16 | P past 16")
+    if not (0 < P <= MAX_P and (P <= 16 or P % 16 == 0) and 0 < N <= MAX_N):
+        raise ValueError(
+            f"ssd_cuda: P={P}, N={N}: P at most {MAX_P}, 16 | P past 16; N at most {MAX_N}"
+        )
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_cuda: chunk {chunk} not in 1..{MAX_CHUNK}")
     if not (

@@ -547,8 +547,16 @@ def moe_groups(T: int, group_size: int) -> int:
 
 def moe_capacity(Tg: int, cfg: ArchConfig) -> int:
     """Slots per expert and group: ``Tg k / E cf`` in Python floats,
-    truncated, at least 1 (the reference's ``layers.py:319``)."""
-    return max(1, int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    truncated, at least 1 (the reference's ``layers.py:319``).  Where
+    ``cf k >= E`` the capacity is never below ``Tg``, so that such a
+    configuration drops nothing: at 72 experts, top-10 and ``cf`` 7.2 the
+    float product rounds to ``Tg - 1`` for 183 group sizes up to 8,192
+    (61, 122, 235, ...).  Where the formula gives ``Tg`` or more, as at
+    every other configuration here, nothing changes."""
+    cap = max(1, int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    if cfg.capacity_factor * cfg.top_k >= cfg.n_experts:
+        return max(cap, Tg)
+    return cap
 
 
 def top_k(x: torch.Tensor, k: int):

@@ -1,11 +1,12 @@
 """Zamba2-style hybrid, a Mamba2 (SSD) backbone with one shared
 attention block: the port of ``repro.models.zamba.ZambaLM``.
 
-* ``n_layers`` Mamba2 blocks: in_proj -> causal depthwise conv of width
+* ``n_layers`` Mamba2 blocks (the mixer ``mamba.Mamba2Mixer``, shared
+  with ``granite.py``): in_proj -> causal depthwise conv of width
   4 over (x, B, C) -> SiLU -> the SSD chunk scan
   (:func:`repro_torch.kernels.ops.ssd`, the CUDA kernel on the card, in
   prefill and, with one token, in decode, as the reference's
-  ``_mamba_step`` does) -> gated RMSNorm -> out_proj.
+  ``_mamba_step`` does) -> gated RMSNorm (normalise, then gate) -> out_proj.
 * Every ``shared_attn_every`` layers ONE weight-shared attention + MLP
   block runs on ``concat([hidden, initial embedding])`` (2 d_model wide)
   with per-invocation LoRA adapters on the query and the FFN input; its
@@ -49,7 +50,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig
-from ..kernels import ops
 from .base import LMBase, _stack, _unstack
 from .layers import (
     _KV,
@@ -68,27 +68,20 @@ from .layers import (
     embed_specs,
     embed_tokens,
     norm_specs,
-    ops_impl,
     rope_tables,
     unembed,
 )
 from ..sharding import (
     constrain,
-    local,
     local_device,
     serving_region,
     sharded_region,
-    sharded_zeros,
     use_weight,
 )
+from .mamba import CONV_AXES, SSM_AXES, Mamba2Mixer
 from .spec import ParamSpec
 
 __all__ = ["ZambaLM"]
-
-_SSM = ("batch", "ssm_heads", None, None)  # [B, H, P, N]
-_CONV = ("batch", None, "ssm_inner")  # [B, K - 1, conv_dim]
-
-_CONV_K = 4  # mamba short-conv window
 
 
 class ZambaLM(LMBase):
@@ -98,35 +91,14 @@ class ZambaLM(LMBase):
         super().__init__(cfg)
         if not (cfg.ssm_state > 0 and cfg.shared_attn_every > 0):
             raise ValueError(f"{cfg.name}: not a Zamba configuration")
-        self.d_in = cfg.ssm_expand * cfg.d_model
-        self.P = cfg.ssm_head_dim
-        if self.d_in % self.P:
-            raise ValueError(f"{cfg.name}: d_inner {self.d_in} not a multiple of P")
-        self.H = self.d_in // self.P  # ssm heads
-        self.G = 1  # B/C groups
-        self.N = cfg.ssm_state
-        self.conv_dim = self.d_in + 2 * self.G * self.N
+        self.mixer = Mamba2Mixer(cfg)
         self.period = cfg.shared_attn_every
         self.n_groups = cfg.n_layers // self.period
         self.n_extra = cfg.n_layers - self.n_groups * self.period
 
     # ------------------------------------------------------------------
     def _mamba_specs(self):
-        cfg = self.cfg
-        d, d_in, H, G, N = cfg.d_model, self.d_in, self.H, self.G, self.N
-        return {
-            "ln": norm_specs(cfg),
-            "in_proj": ParamSpec((d, 2 * d_in + 2 * G * N + H), ("embed", "ssm_inner")),
-            "conv_w": ParamSpec(
-                (_CONV_K, self.conv_dim), (None, "ssm_inner"), scale=0.2
-            ),
-            "conv_b": ParamSpec((self.conv_dim,), ("ssm_inner",), "zeros"),
-            "A_log": ParamSpec((H,), ("ssm_heads",), "constant", scale=0.0),
-            "D": ParamSpec((H,), ("ssm_heads",), "ones"),
-            "dt_bias": ParamSpec((H,), ("ssm_heads",), "constant", scale=-1.0),
-            "gn_w": ParamSpec((d_in,), ("ssm_inner",), "ones"),
-            "out_proj": ParamSpec((d_in, d), ("ssm_inner", "embed")),
-        }
+        return {"ln": norm_specs(self.cfg), **self.mixer.specs()}
 
     def _shared_specs(self):
         cfg = self.cfg
@@ -169,51 +141,8 @@ class ZambaLM(LMBase):
         return specs
 
     # ------------------------------------------------------------------
-    # Mamba2 block
+    # Mamba2 block (the mixer: ``mamba.Mamba2Mixer``)
     # ------------------------------------------------------------------
-    def _mamba_proj(self, lp, x, dt, rules=None):
-        zxbcdt = x @ use_weight(rules, lp["in_proj"], (None, "ssm_inner"), dt)
-        d_in, cd = self.d_in, self.conv_dim
-        z, conv_in = zxbcdt[..., :d_in], zxbcdt[..., d_in : d_in + cd]
-        return z, conv_in, zxbcdt[..., d_in + cd :]
-
-    def _mamba_post(self, lp, conv_out, dt_raw, z, ssm_state, dt, rules=None):
-        cfg = self.cfg
-        B_, T = conv_out.shape[0], conv_out.shape[1]
-        d_in, G, N, H, P = self.d_in, self.G, self.N, self.H, self.P
-        xc = conv_out[..., :d_in]
-        Bm = conv_out[..., d_in : d_in + G * N].reshape(B_, T, G, N)
-        Cm = conv_out[..., d_in + G * N :].reshape(B_, T, G, N)
-        dtv = F.softplus(dt_raw.float() + lp["dt_bias"].float())
-        A = -torch.exp(lp["A_log"].float())
-        heads, bc = ("batch", None, "ssm_heads", None), ("batch", None, None, None)
-        scan = local(
-            rules,
-            lambda *a: ops.ssd(*a, chunk=cfg.ssd_chunk, impl=ops_impl(cfg)),
-            [heads, _SSM],
-            (heads, heads[:3], ("ssm_heads",), bc, bc, ("ssm_heads",), _SSM),
-        )
-        y, new_state = scan(
-            xc.reshape(B_, T, H, P),
-            dtv,
-            A,
-            Bm,
-            Cm,
-            lp["D"].float(),
-            ssm_state,
-        )
-        # gated RMSNorm (the mamba2 norm), fp32
-        yf = y.reshape(B_, T, d_in).float()
-        yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
-        y = (yf * lp["gn_w"].float()).to(dt) * F.silu(z)
-        return y @ use_weight(rules, lp["out_proj"], ("ssm_inner", None), dt), new_state
-
-    def _conv(self, lp, window, T, dt):
-        """Depthwise causal conv of width K over ``window`` [B, T+K-1, c]."""
-        w = lp["conv_w"].to(dt)
-        out = sum(window[:, i : i + T] * w[i] for i in range(_CONV_K))
-        return F.silu(out + lp["conv_b"].to(dt))
-
     def _mamba_block(self, lp, x, delta, dt, rules=None):
         """Full-sequence Mamba block on the residual ``x`` plus the
         previous block's output ``delta`` (None: nothing pending), the
@@ -221,17 +150,8 @@ class ZambaLM(LMBase):
         block's output, not yet added, ssm state, conv state of the last
         K - 1 conv inputs)."""
         x, h = apply_add_norm(lp["ln"], x, delta, self.cfg, rules)
-        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt, rules)
-        B_, T = x.shape[0], x.shape[1]
-        dev = local_device(x)
-        ssm0 = sharded_zeros(rules, (B_, self.H, self.P, self.N), _SSM,
-                             torch.float32, dev)
-        pad = sharded_zeros(rules, (B_, _CONV_K - 1, self.conv_dim), _CONV,
-                            conv_in.dtype, dev)
-        ci = torch.cat([pad, constrain(rules, conv_in, *_CONV)], dim=1)
-        conv_out = self._conv(lp, ci, T, dt)
-        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm0, dt, rules)
-        return x, out, new_ssm, ci[:, -(_CONV_K - 1) :]
+        out, new_ssm, conv = self.mixer.forward(lp, h, dt, rules)
+        return x, out, new_ssm, conv
 
     def _mamba_step(self, lp, x, delta, conv_state, ssm_state, dt, rules=None):
         """Single-token Mamba block on ``x + delta``, as
@@ -239,12 +159,8 @@ class ZambaLM(LMBase):
         yet added, conv state, ssm state).  conv_state: [B, K-1,
         conv_dim]."""
         x, h = apply_add_norm(lp["ln"], x, delta, self.cfg, rules)
-        z, conv_in, dt_raw = self._mamba_proj(lp, h, dt, rules)
-        conv_in = constrain(rules, conv_in, *_CONV)
-        window = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
-        conv_out = self._conv(lp, window, 1, dt)
-        out, new_ssm = self._mamba_post(lp, conv_out, dt_raw, z, ssm_state, dt, rules)
-        return x, out, window[:, 1:], new_ssm
+        out, conv, new_ssm = self.mixer.step(lp, h, conv_state, ssm_state, dt, rules)
+        return x, out, conv, new_ssm
 
     # ------------------------------------------------------------------
     # Shared attention block
@@ -315,8 +231,8 @@ class ZambaLM(LMBase):
                     self._mamba_block, lp, x, delta, dt, rules
                 )
                 if cache is not None:
-                    cache["ssm_g"][g, j] = constrain(rules, ssm, *_SSM)
-                    cache["conv_g"][g, j] = constrain(rules, conv, *_CONV)
+                    cache["ssm_g"][g, j] = constrain(rules, ssm, *SSM_AXES)
+                    cache["conv_g"][g, j] = constrain(rules, conv, *CONV_AXES)
             # the shared block reads the sum through its concatenation
             x = x + delta
             x, delta, k, v = self._shared_block(
@@ -328,8 +244,8 @@ class ZambaLM(LMBase):
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
             x, delta, ssm, conv = self._remat(self._mamba_block, lp, x, delta, dt, rules)
             if cache is not None:
-                cache["ssm_x"][j] = constrain(rules, ssm, *_SSM)
-                cache["conv_x"][j] = constrain(rules, conv, *_CONV)
+                cache["ssm_x"][j] = constrain(rules, ssm, *SSM_AXES)
+                cache["conv_x"][j] = constrain(rules, conv, *CONV_AXES)
         return apply_add_norm(params["final_norm"], x, delta, cfg, rules)[1]
 
     def forward(self, params, tokens, collect_state: bool = False):
@@ -367,35 +283,17 @@ class ZambaLM(LMBase):
             "zeros",
             dtype=dt,
         )
+        ssm_g, conv_g = self.mixer.state_specs((Gn, Pd), batch_size, dt)
         specs = {
-            "ssm_g": ParamSpec(
-                (Gn, Pd, batch_size, self.H, self.P, self.N),
-                (None, None, "batch", "ssm_heads", None, None),
-                "zeros",
-                dtype=torch.float32,
-            ),
-            "conv_g": ParamSpec(
-                (Gn, Pd, batch_size, _CONV_K - 1, self.conv_dim),
-                (None, None, "batch", None, "ssm_inner"),
-                "zeros",
-                dtype=dt,
-            ),
+            "ssm_g": ssm_g,
+            "conv_g": conv_g,
             "attn_k": kv,
             "attn_v": kv,
             "lengths": ParamSpec((batch_size,), ("batch",), "zeros", dtype=torch.int32),
         }
         if self.n_extra:
-            specs["ssm_x"] = ParamSpec(
-                (self.n_extra, batch_size, self.H, self.P, self.N),
-                (None, "batch", "ssm_heads", None, None),
-                "zeros",
-                dtype=torch.float32,
-            )
-            specs["conv_x"] = ParamSpec(
-                (self.n_extra, batch_size, _CONV_K - 1, self.conv_dim),
-                (None, "batch", None, "ssm_inner"),
-                "zeros",
-                dtype=dt,
+            specs["ssm_x"], specs["conv_x"] = self.mixer.state_specs(
+                (self.n_extra,), batch_size, dt
             )
         return specs
 
@@ -439,8 +337,8 @@ class ZambaLM(LMBase):
                 x, delta, conv, ssm = self._mamba_step(
                     lp, x, delta, conv_g[g, j], ssm_g[g, j], dt, rules
                 )
-                ssm_g[g, j] = constrain(rules, ssm, *_SSM)
-                conv_g[g, j] = constrain(rules, conv, *_CONV)
+                ssm_g[g, j] = constrain(rules, ssm, *SSM_AXES)
+                conv_g[g, j] = constrain(rules, conv, *CONV_AXES)
             x = x + delta  # read through the shared block's concatenation
             x, delta = self._shared_step(
                 params["shared"],
@@ -457,8 +355,8 @@ class ZambaLM(LMBase):
         for j, lp in enumerate(_unstack(params.get("mamba_x", {}), self.n_extra)):
             conv, ssm = cache["conv_x"][j], cache["ssm_x"][j]
             x, delta, conv, ssm = self._mamba_step(lp, x, delta, conv, ssm, dt, rules)
-            cache["ssm_x"][j] = constrain(rules, ssm, *_SSM)
-            cache["conv_x"][j] = constrain(rules, conv, *_CONV)
+            cache["ssm_x"][j] = constrain(rules, ssm, *SSM_AXES)
+            cache["conv_x"][j] = constrain(rules, conv, *CONV_AXES)
         _, x = apply_add_norm(params["final_norm"], x, delta, cfg, rules)
         logits = unembed(params["embed"], x, cfg, rules)
         return dict(cache, lengths=lengths + 1), logits[:, 0]

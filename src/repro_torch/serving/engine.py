@@ -32,7 +32,9 @@ threads) and decode (the engine thread) run under
 default stream, so a staged cache is complete before the engine thread
 copies it in; ``_insert`` writes each cache leaf's slot axis, the one
 its ``cache_specs`` names ``"batch"``, where the reference guesses it
-from shapes; ``decode_steps``/``prefills`` count the model calls; and
+from shapes; ``decode_steps``/``prefills`` count the model calls; an idle
+ingestion worker naps longer after each empty claim (``_IDLE_NAP_S``),
+where the reference's polls every half millisecond; and
 while a profiler records, the engine's phases are spans
 (:mod:`repro_torch.tracing`): ``claim`` (a worker's non-empty claim:
 ``worker``, ``items``, ``rids``), ``prefill`` (``rid``, ``tokens``),
@@ -68,6 +70,15 @@ from .request import Request, RequestResult
 from .scheduler import make_scheduler
 
 __all__ = ["EngineConfig", "InferenceEngine"]
+
+#: an idle ingestion worker's naps between empty claims: from the
+#: shortest, doubled after each empty claim up to the longest, back to the
+#: shortest once a claim brings requests.  A worker woken every half millisecond takes
+#: the interpreter lock from the decode thread at each of its ops: two
+#: such workers made a 32-slot granite-4.0-h-small decode step take 105
+#: ms against 65 ms alone on an H100 host; at the longest nap a request
+#: that finds every worker idle waits at most that long to be claimed.
+_IDLE_NAP_S = (0.0005, 0.008)
 
 @dataclass
 class EngineConfig:
@@ -180,12 +191,16 @@ class InferenceEngine:
         return batch
 
     def _worker_loop(self, wid: int):
+        shortest, longest = _IDLE_NAP_S
+        nap = shortest
         with torch.inference_mode():  # thread-local: enter it per thread
             while not self._stop.is_set():
                 claim = self.sched.claim(wid, self.ecfg.claim_batch)
                 if claim is None:
-                    time.sleep(0.0005)
+                    time.sleep(nap)
+                    nap = min(2 * nap, longest)
                     continue
+                nap = shortest
                 with tracing.span("claim", worker=wid) as sp:
                     if sp:
                         rids = [r.rid for r in claim.payloads if r is not None]

@@ -56,6 +56,7 @@ __all__ = [
     "inner_span",
     "no_span",
     "range_name",
+    "recording",
     "span",
     "spans",
 ]
@@ -159,6 +160,11 @@ def _thread_stack() -> list:
     except AttributeError:
         _local.stack = []
         return _local.stack
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def span(name: str, **fields):

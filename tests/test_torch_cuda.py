@@ -7,7 +7,8 @@ on the machine with the card, where JAX is not installed::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are those of the serving paths (qwen2-1.5b, rwkv6-3b,
-zamba2-1.2b, whisper-large-v3's encoder and cross caches, the VLM's
+zamba2-1.2b, granite-4.0-h-small's SSD at N = 128, whisper-large-v3's
+encoder and cross caches, the VLM's
 cross-attention, moonshot's and grok-1's self-attention and MoE block)
 and of the reference's sweeps; tolerances are those of
 ``tests/test_kernels.py`` (fp32 ``2e-5``, bf16 ``2e-2``; the WKV6 and SSD
@@ -900,6 +901,8 @@ def _ssd_inputs(dev, B, T, H, P, G, N, dtype, seed):
         (1, 20, 4, 16, 2, 8, 8),  # T = 20 over chunk 8 pads
         (1, 384, 64, 64, 1, 64, 64),  # zamba2-1.2b's prefill
         (16, 1, 64, 64, 1, 64, 64),  # zamba2-1.2b's decode step
+        (1, 1024, 128, 64, 1, 128, 64),  # granite-4.0-h-small's prefill, N = 128
+        (32, 1, 128, 64, 1, 128, 64),  # granite-4.0-h-small's 32-slot decode step
     ],
 )
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -961,7 +964,7 @@ def test_cuda_ssd_ragged_equals_plain(T, G, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 2, 20, 70])
-@pytest.mark.parametrize("P,N", [(6, 10), (5, 3), (16, 40)])
+@pytest.mark.parametrize("P,N", [(6, 10), (5, 3), (16, 40), (16, 100), (64, 72)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_ssd_odd_widths_equal_plain(T, P, N, dtype):
     """Head and state widths off the 16-wide tensor-core tiles and the

@@ -16,6 +16,7 @@ small result.  Lengths agree exactly.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -229,12 +230,24 @@ def test_params_from_reference_rejects_missing_extra_and_misshapen_leaves():
         params_from_reference(tcfg, bad, device="cpu")
 
 
+def _reference_fields(cfg) -> dict:
+    """The port config's values of the reference config's fields."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ArchConfig)}
+
+
 def test_configs_are_copies_of_the_reference():
+    """The ten configurations hold the reference's values in every field
+    the reference has, and each field only the port has (the pattern
+    hybrid's) at its default, so that none of them changes."""
     assert configs.ALL_ARCHS == jconfigs.ALL_ARCHS
+    ref_fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    port_only = [f for f in dataclasses.fields(TArchConfig) if f.name not in ref_fields]
+    assert port_only and ref_fields <= {f.name for f in dataclasses.fields(TArchConfig)}
     for name in configs.ALL_ARCHS:
         for get in ("get", "get_tiny"):
             t, j = getattr(configs, get)(name), getattr(jconfigs, get)(name)
-            assert t.__dict__ == j.__dict__, name
+            assert _reference_fields(t) == j.__dict__, name
+            assert all(getattr(t, f.name) == f.default for f in port_only), name
             assert t.n_params() == j.n_params()
             assert t.vocab_padded() == j.vocab_padded()
 
@@ -246,7 +259,7 @@ def test_init_draws_the_reference_distributions():
     model = build_model(cfg)
     g = torch.Generator().manual_seed(0)
     params = model.init(generator=g, device="cpu")
-    jparams = _reference_params(ArchConfig(**cfg.__dict__), 0)
+    jparams = _reference_params(ArchConfig(**_reference_fields(cfg)), 0)
     t = dict(_leaves(params))
     j = dict(_leaves(jparams))
     assert sorted(t) == sorted(j)

@@ -14,6 +14,8 @@ zero image embeddings), under both policies.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -158,6 +160,38 @@ def test_release_runs_one_batched_done_prefix_per_step(monkeypatch):
     eng.run(_requests(10), timeout=90)
     assert calls and all(c == ((4, 2), "cpu", "auto") for c in calls)
     assert eng.tail == eng.head == 10
+
+
+class _Late:
+    """Requests submitted once ``delay`` seconds have passed."""
+
+    def __init__(self, reqs, delay):
+        self.reqs, self.delay = reqs, delay
+
+    def __len__(self):
+        return len(self.reqs)
+
+    def __iter__(self):
+        time.sleep(self.delay)
+        yield from self.reqs
+
+
+def test_idle_workers_back_off_and_still_serve():
+    """The workers find nothing for 0.6 s: they nap longer after each
+    empty claim, so that their empty claims over the run number about its
+    seconds over the longest nap (half-millisecond polls made 16 times as
+    many), and the request that ends the idle stretch is still claimed
+    and served."""
+    from repro_torch.serving.engine import _IDLE_NAP_S
+
+    eng = _engine(n_slots=2, max_seq=24, n_workers=2)
+    t = time.perf_counter()
+    res = eng.run(_Late(_requests(1), 0.6), rate=1e9, timeout=60)
+    run_s = time.perf_counter() - t
+    assert [r.rid for r in res] == [0] and len(res[0].tokens) == 5
+    # each worker naps at the longest but for its few shorter naps after
+    # the start and after its claim (0.5, 1, 2 and 4 ms)
+    assert eng.sched.stats()["empty_polls"] <= 2 * run_s / _IDLE_NAP_S[1] + 20
 
 
 def test_mapped_done_prefix_refuses_unpinned_memory():
